@@ -1,0 +1,1 @@
+"""checkpoint of the PyTorch/CUDA port (counterpart of picad_tpu/checkpoint)."""
