@@ -1,4 +1,4 @@
-"""Capsule localization network, eval forward: PrimaryCaps, ConvCaps, CapsNet.
+"""Capsule localization network: PrimaryCaps, ConvCaps, CapsNet.
 
 Counterpart of picad_tpu/models/capsules.py (reference
 models/capsules_ucf101.py).  Module and parameter names are the reference
@@ -10,10 +10,14 @@ type, biases are added in f32 (so the capsule and decoder activations
 between convs are f32), BatchNorm runs in f32, EM routing keeps its
 (b, C) chain in f32, and the seg logits and class scores return in f32.
 
-Only the eval forward exists in this slice: class scores are the spatial
-mean of the capsule activations and the pose mask is the one-hot of their
-argmax.  ConvCaps has the K=(1,1) mode CapsNet uses; the `w_shared` and
-general-K modes wait (ROADMAP.md).
+Class scores are the spatial mean of the capsule activations.  At eval
+the pose mask is the one-hot of their argmax; in train mode it is the
+ground-truth one-hot for labelled rows and, for unlabelled rows, all ones
+before `thresh_epoch` and the argmax one-hot from then on (the
+pseudo-label gate, picad_tpu/models/capsules.py:329-345).  Train mode
+also draws the channel dropout of the encoder output and of the fused
+head from an explicit generator.  ConvCaps has the K=(1,1) mode CapsNet
+uses; the `w_shared` and general-K modes wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -90,19 +94,23 @@ class CapsNet(nn.Module):
     op (ops/fused_head.py), whose big composite is the CUDA kernel on the
     card; `fused_head=False` is the literal ConvT chain, kept as the
     parity baseline.  Parameters live in f32; `compute_dtype` is the type
-    the convolutions run in.
+    the convolutions run in.  `bn_groups` > 1 when the original and the
+    flipped views run as one batch (train mode only); `dropout_rate` is
+    the channel dropout of the encoder output and of the decoder head.
     """
 
     def __init__(self, num_classes=24, pose_size=4, compute_dtype=torch.float32,
-                 fused_head=True):
+                 fused_head=True, bn_groups=1, dropout_rate=0.5):
         super().__init__()
         C, P = num_classes, pose_size
         self.num_classes, self.pose_size = C, P
         self.compute_dtype = compute_dtype
         self.fused_head = fused_head
+        self.bn_groups = bn_groups
+        self.dropout_rate = dropout_rate
         kw = dict(compute_dtype=compute_dtype)
-        self.conv1 = InceptionI3d(**kw)
-        self.drop_enc = Dropout3d()
+        self.conv1 = InceptionI3d(bn_groups=bn_groups, **kw)
+        self.drop_enc = Dropout3d(dropout_rate)
         self.primary_caps = PrimaryCaps(832, 32, P, 9, **kw)
         self.conv_caps = ConvCaps(32, C, P, **kw)
         # ConvTranspose weights (Cin, Cout, *k); conv weights (Cout, Cin, *k)
@@ -114,7 +122,7 @@ class CapsNet(nn.Module):
         self.conv28 = WeightBias((64, 832, 3, 3), 64)
         self.conv56 = WeightBias((64, 192, 3, 3, 3), 64)
         self.conv112 = WeightBias((64, 64, 3, 3, 3), 64)
-        self.drop_dec = Dropout3d()
+        self.drop_dec = Dropout3d(dropout_rate)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "CapsNet":
@@ -168,29 +176,30 @@ class CapsNet(nn.Module):
         y = conv_nd(x.to(dt), m.weight.to(dt), 1, m.weight.shape[-1] // 2)
         return y + m.bias.view((1, -1) + (1,) * (y.ndim - 2))
 
-    def forward(self, img: torch.Tensor):
+    def forward(self, img: torch.Tensor, classification=None, concat_labels=None,
+                epoch=0, thresh_epoch=0, *, generator: torch.Generator | None = None):
         """img (B, 8, H, W, 3) channels-last, H and W divisible by 16 with
         H/8 - 8 >= 1 (224 in the reference) -> (seg_logits (B, 8, H, W) f32,
         class_scores (B, C) f32, feat (B, h*w, C)).
 
-        The eval mask is the argmax one-hot, so no label enters this
-        forward (the JAX eval call passes a dummy action 500 it ignores)."""
-        if self.training:
-            raise NotImplementedError(
-                "CapsNet runs in eval mode only: the train-mode forward comes "
-                "with the training slice of the port (ROADMAP.md); call "
-                "model.eval()"
-            )
+        Eval needs only img: the mask is the argmax one-hot (the JAX eval
+        call passes a dummy action it ignores).  Train mode needs the
+        labels `classification` (B,) and `concat_labels` (B,) (1 =
+        labelled), the epoch and thresh_epoch of the pseudo-label gate,
+        and draws its dropout from `generator`."""
         C, psize = self.num_classes, self.pose_size ** 2
         dt = self.compute_dtype
         B, T, H, W, _ = img.shape
         if T != 8:
             raise ValueError(f"the I3D/decoder temporal schedule needs T=8, got {T}")
+        if self.training and (classification is None or concat_labels is None):
+            raise ValueError("the train-mode forward needs classification and concat_labels")
         relu = torch.relu
 
         x, cross56, cross112 = self.conv1(img.permute(0, 4, 1, 2, 3))
         h28, w28 = H // 8, W // 8
-        x = self.drop_enc(x.reshape(B, 832, h28, w28))  # T = 1 at Mixed_4f
+        # T = 1 at Mixed_4f; dropout after the 4-D reshape (capsules.py:313)
+        x = self.drop_enc(x.reshape(B, 832, h28, w28), generator)
         cross28 = x
         combined = self.conv_caps(self.primary_caps(x))
 
@@ -199,7 +208,15 @@ class CapsNet(nn.Module):
         activations = combined[..., ranges : ranges + C]  # (B, h, w, C)
         feat = activations.reshape(B, h * w, C)
         class_scores = activations.mean(dim=(1, 2))
-        class_mask = F.one_hot(class_scores.argmax(dim=1), C).to(torch.float32)
+        one_hot_pred = F.one_hot(class_scores.argmax(dim=1), C).to(torch.float32)
+        if self.training:
+            one_hot_gt = F.one_hot(classification.long().reshape(B), C).to(torch.float32)
+            unlabeled = (torch.ones_like(one_hot_gt) if float(epoch) < float(thresh_epoch)
+                         else one_hot_pred)
+            sel = (concat_labels.reshape(B, 1) == 0).to(torch.float32)
+            class_mask = sel * unlabeled + (1.0 - sel) * one_hot_gt
+        else:
+            class_mask = one_hot_pred
         poses = combined[..., :ranges].reshape(B, h, w, C, psize)
         poses = (poses * class_mask[:, None, None, :, None]).reshape(B, h, w, ranges)
 
@@ -215,10 +232,14 @@ class CapsNet(nn.Module):
         up4, sm = self.upsample4, self.smooth
         if self.fused_head:
             drop_scale = torch.ones((B, 128), dtype=torch.float32, device=img.device)
+            if self.training and self.dropout_rate > 0.0:
+                keep = 1.0 - self.dropout_rate
+                mask = torch.rand((B, 128), generator=generator, device=img.device) < keep
+                drop_scale = mask.to(torch.float32) / keep
             x_cl = x.to(dt).permute(0, 2, 3, 4, 1).contiguous()  # (B, 4, 112, 112, 128)
             seg = fused_decoder_head(x_cl, up4.weight, up4.bias, sm.weight, sm.bias, drop_scale)
         else:
-            y = self.drop_dec(self._convt(up4, x, 2, 1, 1))  # (B, 128, 8, 224, 224)
+            y = self.drop_dec(self._convt(up4, x, 2, 1, 1), generator)  # (B, 128, 8, 224, 224)
             seg = self._convt(sm, y, 1, 1, 0)[:, 0]
         seg_logits = seg.reshape(B, 8, H, W).to(torch.float32)
         return seg_logits, class_scores.to(torch.float32), feat
@@ -232,8 +253,11 @@ def build_capsnet(
     fused_head: bool = True,
     seed: int = 0,
     device=None,
+    bn_groups: int = 1,
+    dropout_rate: float = 0.5,
 ) -> CapsNet:
-    """The eval-mode CapsNet on `device` (default: the CUDA card).
+    """The eval-mode CapsNet on `device` (default: the CUDA card); the
+    train-mode one is `build_train_capsnet`.
 
     Weights come from a reference-format `state_dict` (numpy arrays or
     tensors) or, without one, from `init_weights` seeded with `seed`.
@@ -245,9 +269,20 @@ def build_capsnet(
         num_classes,
         compute_dtype=compute_dtype or default_compute_dtype(dev),
         fused_head=fused_head,
+        bn_groups=bn_groups,
+        dropout_rate=dropout_rate,
     )
     if state_dict is None:
         model.init_weights(torch.Generator().manual_seed(seed))
     else:
         load_reference_state_dict(model, state_dict)
     return model.to(dev).eval()
+
+
+def build_train_capsnet(state_dict=None, *, bn_groups: int = 1,
+                        dropout_rate: float = 0.5, **kwargs) -> CapsNet:
+    """The train-mode counterpart of `build_capsnet`: BatchNorm with
+    `bn_groups` statistics groups (2: the train step folds the original
+    and flipped views into one batch) and channel dropout `dropout_rate`."""
+    return build_capsnet(state_dict, bn_groups=bn_groups, dropout_rate=dropout_rate,
+                         **kwargs).train()

@@ -1,7 +1,8 @@
 """Inception-v1 I3D encoder up to Mixed_4f, with the decoder's skip outputs.
 
 Counterpart of picad_tpu/models/i3d.py (reference models/pytorch_i3d.py:
-152-353), eval mode, channels-first (B, C, T, H, W).  Returns
+152-353), channels-first (B, C, T, H, W).  In train mode every Unit3D's
+BatchNorm uses `bn_groups` groups of the batch (one per folded view).  Returns
 (Mixed_4f, out56, out112): out112 is the Conv3d_1a_7x7 activation and
 out56 the Conv3d_2c_3x3 activation.
 
@@ -42,9 +43,9 @@ class InceptionModule(nn.Module):
     """4-branch inception block, concat order [1x1, 1x1->3x3, 1x1->3x3,
     maxpool->1x1] (reference :124-149)."""
 
-    def __init__(self, cin, oc, compute_dtype=torch.float32):
+    def __init__(self, cin, oc, compute_dtype=torch.float32, bn_groups=1):
         super().__init__()
-        kw = dict(compute_dtype=compute_dtype)
+        kw = dict(compute_dtype=compute_dtype, bn_groups=bn_groups)
         self.b0 = Unit3D(cin, oc[0], **kw)
         self.b1a = Unit3D(cin, oc[1], **kw)
         self.b1b = Unit3D(oc[1], oc[2], (3, 3, 3), **kw)
@@ -57,7 +58,8 @@ class InceptionModule(nn.Module):
         b1 = self.b1b(self.b1a(x))
         b2 = self.b2b(self.b2a(x))
         # T=1: a temporal window over zero padding is the identity on
-        # post-ReLU (>= 0) inputs, so the pool drops to (1, 3, 3)
+        # post-ReLU (>= 0) inputs, so the pool drops to (1, 3, 3); stride-1
+        # pools are separable with the all-ties backward (ops/convops.py)
         pool_k = (1, 3, 3) if x.shape[2] == 1 else (3, 3, 3)
         b3 = self.b3b(max_pool_same_zero_pad(x, pool_k, (1, 1, 1)))
         return torch.cat([b0, b1, b2, b3], dim=1)
@@ -66,9 +68,9 @@ class InceptionModule(nn.Module):
 class InceptionI3d(nn.Module):
     """I3D encoder to Mixed_4f; module names are the reference keys."""
 
-    def __init__(self, compute_dtype=torch.float32):
+    def __init__(self, compute_dtype=torch.float32, bn_groups=1):
         super().__init__()
-        kw = dict(compute_dtype=compute_dtype)
+        kw = dict(compute_dtype=compute_dtype, bn_groups=bn_groups)
         self.Conv3d_1a_7x7 = Unit3D(3, 64, (7, 7, 7), (2, 2, 2), **kw)
         self.Conv3d_2b_1x1 = Unit3D(64, 64, **kw)
         self.Conv3d_2c_3x3 = Unit3D(64, 192, (3, 3, 3), (2, 1, 1), **kw)

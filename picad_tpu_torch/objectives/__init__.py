@@ -1,0 +1,1 @@
+"""objectives of the PyTorch/CUDA port (counterpart of picad_tpu/objectives)."""

@@ -12,9 +12,11 @@ are thin wrappers over torch's convolutions that add what torch lacks:
   max-pools, which differs from -inf padding wherever inputs are
   negative.
 - ConvTransposeNd with output_padding is torch's own definition.
-
-The tied-max pooling backward of the JAX package (convops.py:208-268)
-comes with the training slice.
+- Stride-1 max pools are separable, with the JAX package's tied-max
+  backward (convops.py:148-268): every tied maximum of a window gets
+  the window's gradient.  Strided pools keep the joint pool, whose
+  backward gives each window's gradient to its first maximum in scan
+  order, as XLA's select-and-scatter does.
 """
 
 from __future__ import annotations
@@ -88,10 +90,65 @@ def conv_transpose_nd(
 
 
 def max_pool_same_zero_pad(x: torch.Tensor, kernel, stride) -> torch.Tensor:
-    """Max pool with TF-SAME *zero* padding, x (N, C, *sp), 1 <= sp <= 3."""
+    """Max pool with TF-SAME *zero* padding, x (N, C, *sp), 1 <= sp <= 3.
+
+    Stride-1 pools run as one 1-D stage per axis whose kernel is larger
+    than 1, in axis order (the same values as the joint window: max is
+    associative and each stage zero-pads its own axis), each with the
+    all-ties backward of `_MaxPoolAxis`.  Strided pools are one joint
+    pool."""
     n = x.ndim - 2
     kernel = _tuple(kernel, n)
     stride = _tuple(stride, n)
+    if all(s == 1 for s in stride):
+        for a in range(n):
+            if kernel[a] != 1:
+                x = _MaxPoolAxis.apply(x, 2 + a, kernel[a])
+        return x
     pads = [same_pads(x.shape[2 + i], kernel[i], stride[i]) for i in range(n)]
     pool = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}[n]
     return pool(_pad_spatial(x, pads), kernel, stride)
+
+
+def _shift(t: torch.Tensor, dim: int, shift: int, fill: float) -> torch.Tensor:
+    """t shifted by `shift` along dim (out[i] = t[i - shift]), filled."""
+    if shift == 0:
+        return t
+    size = t.shape[dim]
+    pad_shape = list(t.shape)
+    pad_shape[dim] = abs(shift)
+    pad = torch.full(pad_shape, fill, dtype=t.dtype, device=t.device)
+    if shift > 0:
+        return torch.cat([pad, t.narrow(dim, 0, size - shift)], dim=dim)
+    return torch.cat([t.narrow(dim, -shift, size + shift), pad], dim=dim)
+
+
+class _MaxPoolAxis(torch.autograd.Function):
+    """Stride-1 zero-padded max pool along one dim, with the JAX
+    package's backward (convops.py:248-265):
+
+        dx[i] = sum over windows j containing i of 1[x[i] == y[j]] g[j],
+
+    k shifted compare-and-add passes in f32, cast to x's type."""
+
+    @staticmethod
+    def forward(ctx, x, dim, k):
+        lo, hi = same_pads(x.shape[dim], k, 1)
+        pads = [(0, 0)] * (x.ndim - 2)
+        pads[dim - 2] = (lo, hi)
+        y = _pad_spatial(x, pads).unfold(dim, k, 1).amax(dim=-1)
+        ctx.save_for_backward(x, y)
+        ctx.dim, ctx.k, ctx.lo = dim, k, lo
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        dim, lo = ctx.dim, ctx.lo
+        gf = g.float()
+        acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for t in range(ctx.k):
+            s = t - lo  # i = j + t - lo  =>  window j = i - (t - lo)
+            ys = _shift(y, dim, s, float("-inf"))
+            acc = acc + (x == ys).float() * _shift(gf, dim, s, 0.0)
+        return acc.to(x.dtype), None, None

@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from picad_tpu_torch._device import resolve_device
+from picad_tpu_torch.config import LossConfig
 from picad_tpu_torch.models.capsules import CapsNet, build_capsnet
 from picad_tpu_torch.serve.runner import ServingModel
+from picad_tpu_torch.train.state import create_train_state
+from picad_tpu_torch.train.step import make_train_step, make_val_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,6 +67,12 @@ def test_entry_points_default_to_the_card():
         build_capsnet()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingModel.from_state_dict()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(LossConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_val_step(LossConfig())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -76,6 +85,16 @@ def test_parameter_names_are_the_reference_keys():
 
 
 def test_train_mode_waits_for_the_training_slice():
-    model = CapsNet()  # nn.Module starts in train mode
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros(1, 8, 80, 80, 3))
+    """The training slice is in: the train-mode forward (nn.Module starts
+    in train mode) runs with labels and returns finite outputs, and asks
+    for the labels it needs."""
+    model = CapsNet().init_weights(torch.Generator().manual_seed(0))
+    assert model.training
+    clip = torch.rand(2, 8, 80, 80, 3, generator=torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="classification and concat_labels"):
+        model(clip)
+    seg, scores, feat = model(clip, torch.tensor([3, 5]), torch.tensor([1.0, 0.0]), 12, 11,
+                              generator=torch.Generator().manual_seed(2))
+    assert seg.shape == (2, 8, 80, 80) and scores.shape == (2, 24) and feat.shape == (2, 4, 24)
+    assert all(bool(torch.isfinite(t).all()) for t in (seg, scores, feat))
+    assert seg.grad_fn is not None
