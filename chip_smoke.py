@@ -17,9 +17,12 @@ failure exits non-zero (no phase is caught and passed over):
             128), the train shape (16, ...) and a ragged shape;
             composite_convt_bwd (K2) at the train shape and a ragged one;
             bn_stats (K6) at the four BN inputs of the train step that take
-            it, plus the cancellation-stress input (against float64).
-            Kernel, plain and library times and the bound at the train
-            shapes.
+            it, plus the cancellation-stress input (against float64);
+            tap_conv_fwd, tap_conv_dx and tap_conv_dw (K3, K4, K5) at
+            PrimaryCaps' pose (Co 512) and act (Co 32) convs, x (B, 28,
+            28, 832) with B = 14 (serving) and 16 (train).  Kernel, plain
+            and library times and the bound at the train shapes (K3-K5:
+            cuDNN in NCHW and channels_last, the faster as library_ms).
   4 slice   the CapsNet eval forward at 224^2, 24 classes, seeded
             weights, batch 2, f32 with TF32 off: card (CUDA kernel) vs CPU
             (plain version); same argmax class, scores and sigmoid seg
@@ -27,17 +30,18 @@ failure exits non-zero (no phase is caught and passed over):
   5 serve   the main path, bf16: ServingModel with clip_batch_size 14,
             predict_clips on 17 clips and predict_video on a 64-frame 224^2
             video, launch counts set to 0 just before and read just after
-            (composite_convt must launch once per padded clip batch);
+            (composite_convt must launch once per padded clip batch and
+            tap_conv_fwd twice: the pose and act convs);
             finite outputs of the right shapes; warm clips/s; the bf16 vs
             f32 deviation on the same clips.
   6 profile torch.profiler over one warm 14-clip predict_clips: wall
             time, summed device time (kernels, copies, fills), its share
-            of the wall, composite_convt's time and the top device
+            of the wall, each port kernel's time and the top device
             entries (all of them in chiprun_out/chip_smoke.json).
   7 train-slice  one f32 train step (bn_groups 2, so both views fold
             into one forward; bv, dropout 0) at 96^2, batch 2, TF32 off,
             same seeded weights
-            and batch, with every BN on K6: the card (K1, K2, K6) against
+            and batch, with every BN on K6: the card (K1-K6) against
             the CPU (their plain versions), inside a noise band the CPU
             measures on itself (N_DRAWS steps after rounding-size weight
             moves: EM routing's cost_std quirk, ROADMAP.md section 3,
@@ -50,7 +54,8 @@ failure exits non-zero (no phase is caught and passed over):
             8x224^2 uint8 clips, epoch 12, ramp 0.5), dropout 0.5 from a
             seeded generator, TRAIN_STEPS steps with the launch counts set
             to 0 just before and read just after: K1 and K2 once per step,
-            K6 once per BN input of >= 2^22 elements per step; finite
+            K6 once per BN input of >= 2^22 elements per step, K3, K4 and
+            K5 twice per step (the pose and act convs); finite
             losses, every parameter moved; warm step time, clips/s and
             peak memory.
   9 train-profile torch.profiler over one warm train step: wall, device
@@ -65,6 +70,7 @@ exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -78,7 +84,7 @@ import torch
 from picad_tpu_torch.config import LossConfig
 from picad_tpu_torch.models import layers
 from picad_tpu_torch.models.capsules import build_capsnet
-from picad_tpu_torch.ops import _build
+from picad_tpu_torch.ops import _build, tapconv
 from picad_tpu_torch.ops.bn_stats import bn_stats, bn_stats_library, bn_stats_plain
 from picad_tpu_torch.ops.fused_head_kernel import (
     composite_convt,
@@ -97,6 +103,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / FP32
 SERVE_SHAPE = (14, 4, 112, 112, 128)  # the head input at clip batch 14, 224^2
 TRAIN_SHAPE = (16, 4, 112, 112, 128)  # ... in the train step: [data; aug] of batch 8
 RAGGED_SHAPE = (2, 3, 20, 13, 128)
+# PrimaryCaps' two 9x9 VALID convs, x (B, 28, 28, 832) -> (B, 20, 20, Co):
+# B = 14 serving, 16 in the train step; Co = 512 pose, 32 activation
+PCAPS_BATCH = {"serve": 14, "train": 16}
+PCAPS_CO = {"pose": 512, "act": 32}
 # the train step's BN inputs of >= 2^22 elements (16 = [data; aug] of 8,
 # G = 2): Conv3d_1a_7x7, Conv3d_2b_1x1, Conv3d_2c_3x3, Mixed_3c.b1b
 BN_SHAPES = [(16, 64, 4, 112, 112), (16, 64, 4, 56, 56), (16, 192, 2, 56, 56),
@@ -193,8 +203,12 @@ def check_composite(shape, dtype, seed, timed: bool) -> dict:
 # the device names of each port kernel's CUDA functions
 KERNEL_FRAGMENTS = {"composite_convt": ("composite_convt_kernel",),
                     "composite_convt_bwd": ("composite_bwd_kernel", "reduce_partials"),
-                    "bn_stats": ("plane_sums", "group_finish")}
-COUNTERS = (composite_convt, composite_convt_bwd, bn_stats)
+                    "bn_stats": ("plane_sums", "group_finish"),
+                    "tap_conv_fwd": ("tap_conv_fwd_kernel",),
+                    "tap_conv_dx": ("tap_conv_dx_kernel",),
+                    "tap_conv_dw": ("tap_conv_dw_kernel",)}
+COUNTERS = (composite_convt, composite_convt_bwd, bn_stats, tapconv.tap_conv_fwd,
+            tapconv.tap_conv_dx, tapconv.tap_conv_dw)
 
 
 def reset_counts() -> None:
@@ -290,6 +304,56 @@ def check_bn_stats_stress(seed) -> dict:
     return {"mean_rel_err": m_rel, "var_rel_err": v_rel}
 
 
+TAP_LIBRARY = {  # one cuDNN call each, on the operands of tapconv.library_operands
+    "tap_conv_fwd": lambda xn, wn, gn: tapconv.tap_conv_fwd_library(xn, wn),
+    "tap_conv_dx": lambda xn, wn, gn: tapconv.tap_conv_dx_library(gn, xn, wn),
+    "tap_conv_dw": lambda xn, wn, gn: tapconv.tap_conv_dw_library(gn, xn, wn),
+}
+
+
+def check_tapconv(batch: int, co: int, dtype, seed: int, timed: bool) -> dict:
+    """K3, K4 and K5 against their plain versions at PrimaryCaps' shapes:
+    x (batch, 28, 28, 832), w (9, 9, 832, co), g (batch, 20, 20, co).
+    Timed: kernel, plain, and cuDNN's time in NCHW and channels_last (the
+    faster is library_ms), and the bound from the useful work."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (0.5 * torch.randn((batch, 28, 28, 832), generator=gen, device="cuda")).to(dtype)
+    w = (0.01 * torch.randn((9, 9, 832, co), generator=gen, device="cuda")).to(dtype)
+    g = torch.randn((batch, 20, 20, co), generator=gen, device="cuda").to(dtype)
+    fns = {
+        "tap_conv_fwd": (lambda: tapconv.tap_conv_fwd(x, w),
+                         lambda: tapconv.tap_conv_fwd_plain(x, w)),
+        "tap_conv_dx": (lambda: tapconv.tap_conv_dx(g, w, x.shape),
+                        lambda: tapconv.tap_conv_dx_plain(g, w, x.shape)),
+        "tap_conv_dw": (lambda: tapconv.tap_conv_dw(x, g, w.shape),
+                        lambda: tapconv.tap_conv_dw_plain(x, g, w.shape)),
+    }
+    res = {"batch": batch, "co": co, "dtype": str(dtype).replace("torch.", "")}
+    for name, (kernel, plain) in fns.items():
+        out = kernel()
+        torch.cuda.synchronize()
+        res[name] = {"err": max_err(out, plain(), f"{name} {batch}x28x28x832 -> {co} {dtype}")}
+    if timed:
+        item = torch.finfo(dtype).bits // 8
+        n_x, n_w, n_o = batch * 28 * 28 * 832, 81 * 832 * co, batch * 20 * 20 * co
+        flops = 2 * n_o * 81 * 832  # the useful work; the canvas form does more
+        nbytes = {"tap_conv_fwd": (n_x + n_w + n_o) * item,  # x, w read; out written
+                  "tap_conv_dx": (n_o + n_w + n_x) * item,  # g, w read; dx written
+                  "tap_conv_dw": (n_x + n_o) * item + n_w * 4}  # x, g read; f32 dW
+        layouts = {"nchw": tapconv.library_operands(x, w, g),
+                   "channels_last": tapconv.library_operands(x, w, g, channels_last=True)}
+        for name, (kernel, plain) in fns.items():
+            r = res[name]
+            r["kernel_ms"] = cuda_ms(kernel, 10)
+            r["plain_ms"] = cuda_ms(plain, 3)
+            r["library_ms_by_layout"] = {
+                k: cuda_ms(lambda ops=ops, f=TAP_LIBRARY[name]: f(*ops), 5)
+                for k, ops in layouts.items()}
+            r["library_ms"] = min(r["library_ms_by_layout"].values())
+            r["bound_ms"], r["bound_by"] = bound(nbytes[name], flops, dtype)
+    return res
+
+
 def synthetic_batch(rng, bs: int, size: int) -> dict:
     """The bench's production sample layout (bench.py:172-180): uint8
     clips, normalized and flipped on the device."""
@@ -348,7 +412,8 @@ def train_step_card_vs_cpu(seed: int = 1, size: int = 96) -> dict:
          torch.backends.cudnn.allow_tf32) = saved
     n_bn = sum(isinstance(m, layers.TorchBatchNorm) for m in
                build_capsnet(device="cpu", compute_dtype=torch.float32).modules())
-    want = {"composite_convt": 1, "composite_convt_bwd": 1, "bn_stats": n_bn}
+    want = {"composite_convt": 1, "composite_convt_bwd": 1, "bn_stats": n_bn,
+            "tap_conv_fwd": 2, "tap_conv_dx": 2, "tap_conv_dw": 2}  # pose and act convs
     problems = [f"launches {launches} != {want}"] if launches != want else []
 
     metrics = {}
@@ -412,7 +477,8 @@ def train_main_path(seed: int) -> tuple[dict, object]:
     launches = read_counts()
     n_big = sum(big_bn)
     want = {"composite_convt": TRAIN_STEPS, "composite_convt_bwd": TRAIN_STEPS,
-            "bn_stats": n_big * TRAIN_STEPS}
+            "bn_stats": n_big * TRAIN_STEPS, "tap_conv_fwd": 2 * TRAIN_STEPS,
+            "tap_conv_dx": 2 * TRAIN_STEPS, "tap_conv_dw": 2 * TRAIN_STEPS}
     moved = sum(not torch.equal(p.detach(), before[n])
                 for n, p in state.model.named_parameters())
     finite = all(np.isfinite(v) for m in losses for v in m.values())
@@ -517,8 +583,12 @@ def main() -> int:
     stats = [check_bn_stats(shape, dtype, args.seed + k, timed=(k == 0))
              for k, shape in enumerate(BN_SHAPES) for dtype in (torch.bfloat16, torch.float32)]
     stress = check_bn_stats_stress(args.seed)
+    taps = [check_tapconv(PCAPS_BATCH[use], PCAPS_CO[conv], dtype, args.seed + k,
+                          timed=(use == "train" and dtype == torch.bfloat16))
+            for k, (use, conv, dtype) in enumerate(itertools.product(
+                PCAPS_BATCH, PCAPS_CO, (torch.bfloat16, torch.float32)))]
     results.update(composite_convt=checks, composite_convt_bwd=bwd, bn_stats=stats,
-                   bn_stats_stress=stress)
+                   bn_stats_stress=stress, tap_conv=taps)
     n_checked = read_counts()
 
     def timing(c):
@@ -535,7 +605,12 @@ def main() -> int:
         f"{c['dtype']} {tuple(c['shape'])} err {max(c['mean_err'], c['var_err']):.2e}"
         + timing(c) for c in stats)
         + f" | bn_stats stress vs float64: mean {stress['mean_rel_err']:.2e} var "
-        f"{stress['var_rel_err']:.2e} (rel) | launches in this phase {n_checked} | {smi}")
+        f"{stress['var_rel_err']:.2e} (rel) | tap_conv (K3/K4/K5) " + "; ".join(
+            f"{c['dtype']} B {c['batch']} Co {c['co']} err " + "/".join(
+                f"{c[k]['err']:.2e}" for k in TAP_LIBRARY)
+            + "".join(f" {k}" + timing(c[k]) for k in TAP_LIBRARY if "kernel_ms" in c[k])
+            for c in taps)
+        + f" | launches in this phase {n_checked} | {smi}")
 
     # 4 the slice, card vs CPU, f32, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -572,7 +647,8 @@ def main() -> int:
                  and vid["segmentation"].shape == (64, 224, 224, 1)
                  and vid["scores"].shape == (24,))
     finite = all(np.isfinite(a).all() for a in (seg, scores, vid["segmentation"], vid["scores"]))
-    want = {"composite_convt": n_batches, "composite_convt_bwd": 0, "bn_stats": 0}
+    want = {"composite_convt": n_batches, "composite_convt_bwd": 0, "bn_stats": 0,
+            "tap_conv_fwd": 2 * n_batches, "tap_conv_dx": 0, "tap_conv_dw": 0}
     if not (ok_shapes and finite and serve_launches == want):
         raise AssertionError(f"serve: shapes ok {ok_shapes}, finite {finite}, "
                              f"launches {serve_launches} != {want}")
@@ -597,8 +673,8 @@ def main() -> int:
                              "clips_per_s_warm": clips_per_s, "bf16_vs_f32": dev_bf16}
     phase(5, "serve", f"ServingModel bf16 clip batch 14: predict_clips 17 -> {seg.shape}, "
           f"predict_video 64 frames -> label {vid['pred_label']}; launches {serve_launches} "
-          f"(composite_convt = padded batches {n_batches}); warm {clips_per_s:.2f} clips/s "
-          f"({smi}); bf16 vs f32: {dev_bf16}")
+          f"(composite_convt = padded batches {n_batches}, tap_conv_fwd twice that); "
+          f"warm {clips_per_s:.2f} clips/s ({smi}); bf16 vs f32: {dev_bf16}")
 
     # 6 where one warm 14-clip serving batch spends its time
     results["profile"] = profile_call(lambda: serving.predict_clips(warm[:14]))
@@ -606,8 +682,9 @@ def main() -> int:
     p = results["profile"]
     phase(6, "profile", "one 14-clip predict_clips: " + (
         f"wall {p['wall_ms']:.2f} ms, device {p['device_ms']:.2f} ms "
-        f"(busy {p['busy_share']:.3f}), composite_convt {p['kernel_ms']['composite_convt']:.3f} "
-        "ms; top: " + ", ".join(f"{k['name'][:40]} {k['device_ms']:.2f}" for k in p["top"][:5])
+        f"(busy {p['busy_share']:.3f}); kernels " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in p["kernel_ms"].items() if v)
+        + "; top: " + ", ".join(f"{k['name'][:40]} {k['device_ms']:.2f}" for k in p["top"][:5])
         if p["device_ms"] else "device time not measured (the profiler saw no CUDA activity)"))
 
     # 7 one f32 train step, card vs CPU
@@ -649,6 +726,7 @@ def main() -> int:
         if tp["device_ms"] else "device time not measured (the profiler saw no CUDA activity)"))
 
     k1, k2, k6 = checks[2], bwd[0], stats[0]  # bf16 at the train shapes
+    k35 = next(c for c in taps if "kernel_ms" in c["tap_conv_fwd"] and c["co"] == 512)
     kernels = {"kernels": [
         {"name": "composite_convt", "route": "cuda",
          "source": "picad_tpu_torch/csrc/composite_convt.cu",
@@ -668,6 +746,14 @@ def main() -> int:
          "launches": tr["launches"]["bn_stats"], "max_abs_err": max(k6["mean_err"], k6["var_err"]),
          "ms": k6["kernel_ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
          "bound_by": k6["bound_by"], "library_ms": k6["library_ms"]},
+    ] + [  # K3-K5: the pose conv at the train shape, bf16
+        {"name": name, "route": "cuda", "source": "picad_tpu_torch/csrc/tap_conv.cu",
+         "replaces": f"picad_tpu/ops/tapconv.py:{line}",
+         "launches": tr["launches"][name], "max_abs_err": k35[name]["err"],
+         "ms": k35[name]["kernel_ms"], "plain_ms": k35[name]["plain_ms"],
+         "bound_ms": k35[name]["bound_ms"], "bound_by": k35[name]["bound_by"],
+         "library_ms": k35[name]["library_ms"]}
+        for name, line in (("tap_conv_fwd", 371), ("tap_conv_dx", 421), ("tap_conv_dw", 478))
     ]}
     results["kernels"] = kernels["kernels"]
     os.makedirs("chiprun_out", exist_ok=True)

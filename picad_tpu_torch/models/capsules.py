@@ -32,11 +32,13 @@ from picad_tpu_torch.models.layers import Dropout3d, WeightBias
 from picad_tpu_torch.ops.convops import conv_nd, conv_transpose_nd
 from picad_tpu_torch.ops.em_routing import em_routing
 from picad_tpu_torch.ops.fused_head import fused_decoder_head
+from picad_tpu_torch.ops.tapconv import tap_conv_valid
 
 
 class PrimaryCaps(nn.Module):
     """Pose + sigmoid-activation 9x9 VALID convs (reference :10-49), as two
-    separate convs (the JAX package's default `_PCAPS_SPLIT`).
+    separate convs (the JAX package's default `_PCAPS_SPLIT`), each through
+    the tap-GEMM conv (ops/tapconv.py: K3-K5 on the card).
     (B, 832, 28, 28) -> channels-last (B, 20, 20, caps*P*P + caps)."""
 
     def __init__(self, cin=832, caps_types=32, pose_size=4, kernel=9,
@@ -49,10 +51,13 @@ class PrimaryCaps(nn.Module):
 
     def forward(self, x):
         dt = self.compute_dtype
-        xc = x.to(dt)
-        p = conv_nd(xc, self.pose.weight.to(dt)) + self.pose.bias[:, None, None]
-        a = torch.sigmoid(conv_nd(xc, self.a.weight.to(dt)) + self.a.bias[:, None, None])
-        return torch.cat([p, a], dim=1).permute(0, 2, 3, 1)
+        xc = x.to(dt).permute(0, 2, 3, 1).contiguous()  # (B, 28, 28, Ci)
+
+        def conv(m: WeightBias):  # weight (Co, Ci, kh, kw) -> (kh, kw, Ci, Co)
+            w = m.weight.to(dt).permute(2, 3, 1, 0).contiguous()
+            return tap_conv_valid(xc, w) + m.bias
+
+        return torch.cat([conv(self.pose), torch.sigmoid(conv(self.a))], dim=-1)
 
 
 class ConvCaps(nn.Module):

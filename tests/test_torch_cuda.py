@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from picad_tpu_torch.models.capsules import build_capsnet
+from picad_tpu_torch.models.capsules import PrimaryCaps, build_capsnet
+from picad_tpu_torch.ops import tapconv
 from picad_tpu_torch.ops.bn_stats import bn_stats, bn_stats_plain, group_stats
 from picad_tpu_torch.ops.fused_head_kernel import (
     composite_convt,
@@ -225,6 +226,133 @@ def test_group_stats_backward_on_card(card):
     v2 = (xg - m2[:, None, :, None]).square().mean(dim=(1, 3))
     (dx_ref,) = torch.autograd.grad((m2 * v2).sum() + m2.square().sum(), x)
     torch.testing.assert_close(dx, dx_ref, rtol=1e-4, atol=1e-6)
+
+
+TAP_CASES = [
+    ((1, 9, 9, 8), (9, 9, 8, 8)),  # a single output position
+    ((2, 10, 9, 24), (3, 5, 24, 16)),  # ragged canvas, kh != kw, Ci != Co, Ci % 32 != 0
+    ((3, 13, 11, 40), (9, 9, 40, 32)),  # ragged canvas, Co = 32 (the act conv's tile)
+    ((2, 28, 28, 64), (9, 9, 64, 512)),  # Co = 512 (the pose conv's width)
+    ((1, 4, 8, 9, 8), (3, 3, 3, 8, 8)),  # rank 3
+    ((2, 30, 16), (7, 16, 8)),  # rank 1
+]
+
+
+def _tap_inputs(card, x_shape, k_shape, dtype, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    out = (x_shape[0],) + tuple(d - k + 1 for d, k in zip(x_shape[1:-1], k_shape[:-2]))
+    x = (0.5 * torch.randn(x_shape, generator=gen, device=card)).to(dtype)
+    w = (0.05 * torch.randn(k_shape, generator=gen, device=card)).to(dtype)
+    g = torch.randn(out + (k_shape[-1],), generator=gen, device=card).to(dtype)
+    return x, w, g
+
+
+def _check_tap_kernels(card, x_shape, k_shape, dtype):
+    """K3, K4 and K5 once each against their plain versions."""
+    x, w, g = _tap_inputs(card, x_shape, k_shape, dtype)
+    before = (tapconv.tap_conv_fwd.launches, tapconv.tap_conv_dx.launches,
+              tapconv.tap_conv_dw.launches)
+    out = tapconv.tap_conv_fwd(x, w)
+    dx = tapconv.tap_conv_dx(g, w, x.shape)
+    dw = tapconv.tap_conv_dw(x, g, w.shape)
+    torch.cuda.synchronize()
+    assert (tapconv.tap_conv_fwd.launches, tapconv.tap_conv_dx.launches,
+            tapconv.tap_conv_dw.launches) == tuple(n + 1 for n in before)
+    assert_close_to_plain(out, tapconv.tap_conv_fwd_plain(x, w), "K3 out")
+    assert_close_to_plain(dx, tapconv.tap_conv_dx_plain(g, w, x.shape), "K4 dx")
+    assert_close_to_plain(dw, tapconv.tap_conv_dw_plain(x, g, w.shape), "K5 dW")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape,k_shape", TAP_CASES)
+def test_tap_conv_kernels_match_plain(card, no_tf32, x_shape, k_shape, dtype):
+    _check_tap_kernels(card, x_shape, k_shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("co", [512, 32])
+def test_tap_conv_kernels_at_the_train_shape(card, no_tf32, co, dtype):
+    """PrimaryCaps' pose (Co 512) and act (Co 32) convs at the train step's
+    x (16, 28, 28, 832)."""
+    _check_tap_kernels(card, (16, 28, 28, 832), (9, 9, 832, co), dtype)
+
+
+def _nan_guarded(t: torch.Tensor, guard: int = 4096) -> torch.Tensor:
+    """A copy of t inside a buffer whose `guard` elements on either side
+    are NaN: a kernel that reads past t poisons its sums."""
+    buf = torch.full((t.numel() + 2 * guard,), float("nan"), dtype=t.dtype, device=t.device)
+    view = buf[guard:guard + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape,k_shape", [TAP_CASES[1], TAP_CASES[2]])
+def test_tap_conv_kernels_read_nothing_outside_their_operands(card, no_tf32, x_shape,
+                                                              k_shape, dtype):
+    """Ragged canvases, every operand between NaN guards (gcan too, through
+    the launch helper the K4 wrapper uses): the rows before and past the
+    canvas must read as zeros inside the kernels, never from memory."""
+    x, w, g = _tap_inputs(card, x_shape, k_shape, dtype, seed=3)
+    xg, wg, gg = _nan_guarded(x), _nan_guarded(w), _nan_guarded(g)
+    out = tapconv.tap_conv_fwd(xg, wg)
+    dw = tapconv.tap_conv_dw(xg, gg, w.shape)
+    pads = [0, 0] + [p for d, o in zip(reversed(x.shape[1:-1]), reversed(g.shape[1:-1]))
+                     for p in (0, d - o)]
+    gcan = _nan_guarded(torch.nn.functional.pad(g, pads))
+    dx = torch.empty_like(x)
+    tapconv._launch(tapconv._DX, "tap_conv_dx", gcan, wg, dx, x.shape, w.shape)
+    torch.cuda.synchronize()
+    assert_close_to_plain(out, tapconv.tap_conv_fwd_plain(x, w), "K3 out")
+    assert_close_to_plain(dx, tapconv.tap_conv_dx_plain(g, w, x.shape), "K4 dx")
+    assert_close_to_plain(dw, tapconv.tap_conv_dw_plain(x, g, w.shape), "K5 dW")
+
+
+def test_tap_conv_kernels_refuse_what_they_cannot_take(card):
+    x, w, g = _tap_inputs(card, (1, 6, 6, 16), (3, 3, 16, 8), torch.float32)
+    before = tapconv.tap_conv_fwd.launches
+    with pytest.raises(TypeError):
+        tapconv.tap_conv_fwd(x.half(), w.half())
+    with pytest.raises(ValueError, match="% 8"):
+        tapconv.tap_conv_fwd(x[..., :12].contiguous(), w[:, :, :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tapconv.tap_conv_fwd(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="spatial dims"):  # rank 4
+        tapconv.tap_conv_fwd(torch.zeros((1, 2, 2, 6, 6, 16), device=card),
+                             torch.zeros((1, 1, 3, 3, 16, 8), device=card))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tapconv.tap_conv_valid(x, w.cpu())
+    assert tapconv.tap_conv_fwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_primary_caps_gradients_on_card_match_cpu(card, no_tf32, dtype):
+    """PrimaryCaps at cin 64, 12^2: output and the gradients of x and of
+    the four parameters on the card (K3, K4, K5) against the CPU (the plain
+    versions), same weights, each within its tolerance of max|CPU|."""
+    gen = torch.Generator().manual_seed(5)
+    outs = {}
+    pc = PrimaryCaps(cin=64, compute_dtype=dtype)
+    for p in pc.parameters():
+        p.data.normal_(0.0, 0.1, generator=gen)
+    x = 0.2 * torch.randn((2, 64, 12, 12), generator=gen)
+    g = torch.randn((2, 4, 4, 544), generator=gen)
+    for dev in (card, torch.device("cpu")):
+        m = PrimaryCaps(cin=64, compute_dtype=dtype).to(dev)
+        m.load_state_dict(pc.state_dict())
+        xd = x.to(dev).requires_grad_(True)
+        before = tapconv.tap_conv_dx.launches
+        out = m(xd)
+        grads = torch.autograd.grad(out, [xd] + list(m.parameters()), g.to(dev))
+        assert tapconv.tap_conv_dx.launches == before + 2 * (dev.type == "cuda")
+        outs[dev.type] = [t.detach().cpu() for t in (out, *grads)]
+    # bf16: the conv outputs and dW round to bf16 before the f32 bias add
+    # and the cast back, so one bf16 ulp of the largest value
+    rtol = KERNEL_RTOL + (BF16_ULP if dtype == torch.bfloat16 else 0.0)
+    errs = {name: ((got - ref).abs().max() / ref.abs().max()).item()
+            for name, got, ref in zip(["out", "x", *dict(pc.named_parameters())],
+                                      outs["cuda"], outs["cpu"])}
+    assert all(e <= rtol for e in errs.values()), errs
 
 
 def test_train_step_on_card_matches_cpu(card, no_tf32):
