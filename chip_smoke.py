@@ -8,8 +8,10 @@ failure exits non-zero (no phase is caught and passed over):
 
   1 device  nvidia-smi's name and power limit, and torch's device name.
   2 build   nvcc on every picad_tpu_torch/csrc/*.cu for sm_90a, one
-            process per source, all started together; build seconds and
-            ptxas's register/spill report.
+            process per source, all started together; build seconds,
+            ptxas's register/spill report, and the count of HGMMA (wgmma)
+            instructions in the built tap-conv library (cuobjdump -sass;
+            fails at 0: bf16 K3 and K4 run on wgmma).
   3 kernel  each kernel against its plain PyTorch version on the same
             inputs, in bf16 and f32, max error <= 1e-4 * max|plain| (f32
             sums in another order; bf16 outputs also one bf16 ulp):
@@ -22,7 +24,9 @@ failure exits non-zero (no phase is caught and passed over):
             PrimaryCaps' pose (Co 512) and act (Co 32) convs, x (B, 28,
             28, 832) with B = 14 (serving) and 16 (train).  Kernel, plain
             and library times and the bound at the train shapes (K3-K5:
-            cuDNN in NCHW and channels_last, the faster as library_ms).
+            cuDNN in NCHW and channels_last, the faster as library_ms;
+            each tap kernel's useful TFLOP/s and its work ratio, the
+            multiply-adds its tiles compute over the useful ones).
   4 slice   the CapsNet eval forward at 224^2, 24 classes, seeded
             weights, batch 2, f32 with TF32 off: card (CUDA kernel) vs CPU
             (plain version); same argmax class, scores and sigmoid seg
@@ -74,6 +78,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -151,6 +156,14 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip()
 
 
+def hgmma_count(lib) -> int:
+    """HGMMA (wgmma) instructions in a built library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                       timeout=120, check=True)
+    return len(re.findall(r"\bHGMMA\b", r.stdout))
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of fn over `iters` back-to-back calls, after one
     warm-up call, by CUDA events."""
@@ -204,20 +217,29 @@ def check_composite(shape, dtype, seed, timed: bool) -> dict:
 KERNEL_FRAGMENTS = {"composite_convt": ("composite_convt_kernel",),
                     "composite_convt_bwd": ("composite_bwd_kernel", "reduce_partials"),
                     "bn_stats": ("plane_sums", "group_finish"),
-                    "tap_conv_fwd": ("tap_conv_fwd_kernel",),
-                    "tap_conv_dx": ("tap_conv_dx_kernel",),
-                    "tap_conv_dw": ("tap_conv_dw_kernel",)}
-COUNTERS = (composite_convt, composite_convt_bwd, bn_stats, tapconv.tap_conv_fwd,
-            tapconv.tap_conv_dx, tapconv.tap_conv_dw)
+                    "tap_conv_fwd": ("tap_conv_fwd_",),  # f32, wgmma and split-sum kernels
+                    "tap_conv_dx": ("tap_conv_dx_",),
+                    "tap_conv_dw": ("tap_conv_dw_",)}
+TAP_COUNTERS = (tapconv.tap_conv_fwd, tapconv.tap_conv_dx, tapconv.tap_conv_dw)
+COUNTERS = (composite_convt, composite_convt_bwd, bn_stats) + TAP_COUNTERS
 
 
 def reset_counts() -> None:
     for fn in COUNTERS:
         fn.launches = 0
+    for fn in TAP_COUNTERS:
+        fn.launches_by_co = {}
 
 
 def read_counts() -> dict:
     return {fn.__name__: fn.launches for fn in COUNTERS}
+
+
+def read_conv_counts() -> dict:
+    """Each tap-conv wrapper's launches at PrimaryCaps' pose and act convs,
+    as the wrapper counted them by Co."""
+    return {fn.__name__: {conv: fn.launches_by_co.get(co, 0) for conv, co in PCAPS_CO.items()}
+            for fn in TAP_COUNTERS}
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -311,6 +333,32 @@ TAP_LIBRARY = {  # one cuDNN call each, on the operands of tapconv.library_opera
 }
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+TAP_MODES = {"tap_conv_fwd": tapconv._FWD, "tap_conv_dx": tapconv._DX,
+             "tap_conv_dw": tapconv._DW}
+
+
+def tap_work_ratio(name: str, batch: int, co: int, ci: int = 832) -> float:
+    """Multiply-adds the bf16 kernel computes at PrimaryCaps' shape over
+    the useful ones, at the tile the wrapper gives it
+    (tapconv.kernel_tile): rows, columns and reduction steps padded to the
+    tile; K4 runs each row tile's listed taps (tapconv.dx_tap_table)."""
+    mode = TAP_MODES[name]
+    bm, bn, bk = tapconv.kernel_tile(mode, torch.bfloat16, ci, co)
+    rows, red = batch * 400, 81 * ci
+    useful = rows * red * co
+    if mode == tapconv._FWD:
+        return _cdiv(rows, bm) * bm * _cdiv(co, bn) * bn * _cdiv(red, bk) * bk / useful
+    if mode == tapconv._DX:
+        table = tapconv.dx_tap_table(batch, (28, 28), (9, 9), bm)
+        red = sum(_cdiv(int(n) * co, bk) * bk for n in table[:, 0])
+        return bm * red * _cdiv(ci, bn) * bn / useful
+    return _cdiv(ci, bm) * bm * _cdiv(co, bn) * bn * 81 * _cdiv(rows, bk) * bk / useful
+
+
 def check_tapconv(batch: int, co: int, dtype, seed: int, timed: bool) -> dict:
     """K3, K4 and K5 against their plain versions at PrimaryCaps' shapes:
     x (batch, 28, 28, 832), w (9, 9, 832, co), g (batch, 20, 20, co).
@@ -351,6 +399,8 @@ def check_tapconv(batch: int, co: int, dtype, seed: int, timed: bool) -> dict:
                 for k, ops in layouts.items()}
             r["library_ms"] = min(r["library_ms_by_layout"].values())
             r["bound_ms"], r["bound_by"] = bound(nbytes[name], flops, dtype)
+            r["useful_tflops"] = flops / r["kernel_ms"] / 1e9
+            r["work_ratio"] = tap_work_ratio(name, batch, co)
     return res
 
 
@@ -474,22 +524,25 @@ def train_main_path(seed: int) -> tuple[dict, object]:
         if i == 0:
             for h in hooks:
                 h.remove()
-    launches = read_counts()
+    launches, by_conv = read_counts(), read_conv_counts()
     n_big = sum(big_bn)
     want = {"composite_convt": TRAIN_STEPS, "composite_convt_bwd": TRAIN_STEPS,
             "bn_stats": n_big * TRAIN_STEPS, "tap_conv_fwd": 2 * TRAIN_STEPS,
             "tap_conv_dx": 2 * TRAIN_STEPS, "tap_conv_dw": 2 * TRAIN_STEPS}
+    want_by_conv = {fn.__name__: {conv: TRAIN_STEPS for conv in PCAPS_CO} for fn in TAP_COUNTERS}
     moved = sum(not torch.equal(p.detach(), before[n])
                 for n, p in state.model.named_parameters())
     finite = all(np.isfinite(v) for m in losses for v in m.values())
     warm_s = float(np.median(times[1:]))
-    res = {"launches": launches, "want": want, "big_bn_per_step": n_big,
+    res = {"launches": launches, "want": want, "launches_by_conv": by_conv,
+           "big_bn_per_step": n_big,
            "params_moved": moved, "n_params": len(before), "losses": losses,
            "step_s": times, "warm_step_ms": warm_s * 1e3,
            "clips_per_s": TRAIN_BS / warm_s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-    if not (launches == want and moved == len(before) and finite):
-        raise AssertionError(f"train: launches {launches} (want {want}), parameters moved "
+    if not (launches == want and by_conv == want_by_conv and moved == len(before) and finite):
+        raise AssertionError(f"train: launches {launches} (want {want}), by conv {by_conv} "
+                             f"(want {want_by_conv}), parameters moved "
                              f"{moved}/{len(before)}, losses finite {finite}: {losses}")
     return res, lambda: step(state, batch, TRAIN_EPOCH, TRAIN_RAMP)
 
@@ -559,10 +612,14 @@ def main() -> int:
     wall = time.perf_counter() - t0
     ptxas = {b.name: re.findall(r"Used \d+ registers|\d+ bytes spill stores, \d+ bytes spill loads",
                                    b.log) for b in builds}
+    hgmma = hgmma_count(next(b.path for b in builds if b.name == "tap_conv"))
     results["build"] = {"wall_s": wall, "per_source_s": {b.name: b.seconds for b in builds},
-                        "ptxas": ptxas}
+                        "ptxas": ptxas, "tap_conv_hgmma": hgmma}
+    if hgmma == 0:
+        raise AssertionError("no HGMMA instruction in the tap-conv library: K3/K4 lost wgmma")
     phase(2, "build", f"{len(builds)} source(s) for sm_90a in {wall:.1f} s: "
-          + "; ".join(f"{b.name} {b.seconds:.1f} s {ptxas[b.name]}" for b in builds))
+          + "; ".join(f"{b.name} {b.seconds:.1f} s {ptxas[b.name]}" for b in builds)
+          + f" | HGMMA instructions in tap_conv: {hgmma}")
 
     # 3 kernels vs plain
     reset_counts()
@@ -608,7 +665,9 @@ def main() -> int:
         f"{stress['var_rel_err']:.2e} (rel) | tap_conv (K3/K4/K5) " + "; ".join(
             f"{c['dtype']} B {c['batch']} Co {c['co']} err " + "/".join(
                 f"{c[k]['err']:.2e}" for k in TAP_LIBRARY)
-            + "".join(f" {k}" + timing(c[k]) for k in TAP_LIBRARY if "kernel_ms" in c[k])
+            + "".join(f" {k}" + timing(c[k]) + f" {c[k]['useful_tflops']:.1f} TFLOP/s useful, "
+                      f"work ratio {c[k]['work_ratio']:.3f}"
+                      for k in TAP_LIBRARY if "kernel_ms" in c[k])
             for c in taps)
         + f" | launches in this phase {n_checked} | {smi}")
 
@@ -641,7 +700,7 @@ def main() -> int:
     reset_counts()
     seg, scores = serving.predict_clips(serve_clips)
     vid = serving.predict_video(video)
-    serve_launches = read_counts()
+    serve_launches, serve_by_conv = read_counts(), read_conv_counts()
     n_batches = 2 + 1  # 17 clips -> 14 + 3 (padded); 64 frames -> 8 clips (padded)
     ok_shapes = (seg.shape == (17, 8, 224, 224) and scores.shape == (17, 24)
                  and vid["segmentation"].shape == (64, 224, 224, 1)
@@ -649,9 +708,12 @@ def main() -> int:
     finite = all(np.isfinite(a).all() for a in (seg, scores, vid["segmentation"], vid["scores"]))
     want = {"composite_convt": n_batches, "composite_convt_bwd": 0, "bn_stats": 0,
             "tap_conv_fwd": 2 * n_batches, "tap_conv_dx": 0, "tap_conv_dw": 0}
-    if not (ok_shapes and finite and serve_launches == want):
+    want_by_conv = {fn.__name__: {conv: n_batches if fn is tapconv.tap_conv_fwd else 0
+                                  for conv in PCAPS_CO} for fn in TAP_COUNTERS}
+    if not (ok_shapes and finite and serve_launches == want and serve_by_conv == want_by_conv):
         raise AssertionError(f"serve: shapes ok {ok_shapes}, finite {finite}, "
-                             f"launches {serve_launches} != {want}")
+                             f"launches {serve_launches} != {want} or by conv {serve_by_conv} "
+                             f"!= {want_by_conv}")
     # warm rate: whole predict_clips calls (host padding and copies included)
     reps, n = 3, 28
     warm = serve_clips[:14].repeat(2, axis=0)
@@ -669,10 +731,12 @@ def main() -> int:
     dev_bf16 = {"max_abs_sigmoid_seg": float(np.abs(seg - seg32).max()),
                 "max_abs_scores": float(np.abs(scores - scores32).max()),
                 "argmax_agree": float((scores.argmax(1) == scores32.argmax(1)).mean())}
-    results["serve_bf16"] = {"launches": serve_launches, "padded_batches": n_batches,
+    results["serve_bf16"] = {"launches": serve_launches, "launches_by_conv": serve_by_conv,
+                             "padded_batches": n_batches,
                              "clips_per_s_warm": clips_per_s, "bf16_vs_f32": dev_bf16}
     phase(5, "serve", f"ServingModel bf16 clip batch 14: predict_clips 17 -> {seg.shape}, "
-          f"predict_video 64 frames -> label {vid['pred_label']}; launches {serve_launches} "
+          f"predict_video 64 frames -> label {vid['pred_label']}; launches {serve_launches}, "
+          f"K3 by conv {serve_by_conv['tap_conv_fwd']} "
           f"(composite_convt = padded batches {n_batches}, tap_conv_fwd twice that); "
           f"warm {clips_per_s:.2f} clips/s ({smi}); bf16 vs f32: {dev_bf16}")
 
@@ -706,7 +770,8 @@ def main() -> int:
     tr, one_step = train_main_path(args.seed)
     results["train_bf16"] = tr
     phase(8, "train", f"bench configuration bf16, batch {TRAIN_BS} (2B = {2 * TRAIN_BS}) of "
-          f"8x224^2, {TRAIN_STEPS} steps: launches {tr['launches']} (K6 inputs per step "
+          f"8x224^2, {TRAIN_STEPS} steps: launches {tr['launches']}, K3-K5 by conv "
+          f"{tr['launches_by_conv']} (K6 inputs per step "
           f"{tr['big_bn_per_step']}); loss {tr['losses'][0]['loss']:.4f} -> "
           f"{tr['losses'][-1]['loss']:.4f}; parameters moved {tr['params_moved']}/"
           f"{tr['n_params']}; warm step {tr['warm_step_ms']:.2f} ms = "
@@ -726,7 +791,8 @@ def main() -> int:
         if tp["device_ms"] else "device time not measured (the profiler saw no CUDA activity)"))
 
     k1, k2, k6 = checks[2], bwd[0], stats[0]  # bf16 at the train shapes
-    k35 = next(c for c in taps if "kernel_ms" in c["tap_conv_fwd"] and c["co"] == 512)
+    k35 = {conv: next(c for c in taps if "kernel_ms" in c["tap_conv_fwd"] and c["co"] == co)
+           for conv, co in PCAPS_CO.items()}
     kernels = {"kernels": [
         {"name": "composite_convt", "route": "cuda",
          "source": "picad_tpu_torch/csrc/composite_convt.cu",
@@ -746,13 +812,15 @@ def main() -> int:
          "launches": tr["launches"]["bn_stats"], "max_abs_err": max(k6["mean_err"], k6["var_err"]),
          "ms": k6["kernel_ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
          "bound_by": k6["bound_by"], "library_ms": k6["library_ms"]},
-    ] + [  # K3-K5: the pose conv at the train shape, bf16
-        {"name": name, "route": "cuda", "source": "picad_tpu_torch/csrc/tap_conv.cu",
+    ] + [  # K3-K5 at the train shape, bf16, at the pose and at the act conv, with
+        # the launches the wrapper counted at that conv's Co
+        {"name": f"{name}/{conv}", "route": "cuda", "source": "picad_tpu_torch/csrc/tap_conv.cu",
          "replaces": f"picad_tpu/ops/tapconv.py:{line}",
-         "launches": tr["launches"][name], "max_abs_err": k35[name]["err"],
-         "ms": k35[name]["kernel_ms"], "plain_ms": k35[name]["plain_ms"],
-         "bound_ms": k35[name]["bound_ms"], "bound_by": k35[name]["bound_by"],
-         "library_ms": k35[name]["library_ms"]}
+         "launches": tr["launches_by_conv"][name][conv], "max_abs_err": k35[conv][name]["err"],
+         "ms": k35[conv][name]["kernel_ms"], "plain_ms": k35[conv][name]["plain_ms"],
+         "bound_ms": k35[conv][name]["bound_ms"], "bound_by": k35[conv][name]["bound_by"],
+         "library_ms": k35[conv][name]["library_ms"]}
+        for conv in PCAPS_CO
         for name, line in (("tap_conv_fwd", 371), ("tap_conv_dx", 421), ("tap_conv_dw", 478))
     ]}
     results["kernels"] = kernels["kernels"]

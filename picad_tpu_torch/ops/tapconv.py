@@ -22,12 +22,22 @@ It is a `torch.autograd.Function`, differentiable in x and w:
   plain versions on the CPU); dW is cast to w's type, as the JAX
   package's `_tap_bwd` does.  It saves (x, w in x's type), not the output.
 
+The kernels' tiles are chosen here (`kernel_tile`) and passed to the
+kernel, which refuses a tile it is not built for.  In bf16 on the card,
+K3 and K4 run csrc/tap_conv.cu's wgmma body, whose index plans are made
+here at those tiles: `fwd_split_plan` splits K3's reduction into groups
+whose f32 partials a second pass sums in order (so that the blocks fill
+the card's SMs), and `dx_tap_table` lists, for each row tile of K4's
+canvas rows, the taps whose gcan rows can be non-zero there.
+
 Kernels are built with nvcc at first use and bound with ctypes.  On a
 CUDA tensor a wrapper launches its kernel or raises: there is no switch,
 no shape gate and no fallback.  `tap_conv_fwd.launches`,
 `tap_conv_dx.launches` and `tap_conv_dw.launches` count kernel launches,
-and nothing else.  The `*_library` functions are cuDNN yardsticks that
-chip_smoke.py times beside the kernels; the port never calls them.
+and nothing else; `launches_by_co` counts the same launches by Co, which
+tells a model's convs apart.  The `*_library` functions are cuDNN
+yardsticks that chip_smoke.py times beside the kernels; the port never
+calls them.
 """
 
 from __future__ import annotations
@@ -36,13 +46,17 @@ import ctypes
 import itertools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 # csrc/tap_conv.cu's modes
 _FWD, _DX, _DW = 0, 1, 2
 _MAX_RANK = 3  # spatial dims the kernel unravels
-_BM = 128  # the kernel's row tile
+_BM = 128  # the row tile of the f32 kernels and of K5 (rows in grid.y)
+_STEP = 64  # the wgmma body's reduction step: (tap, channel) pairs
+_DX_BM = 192  # bf16 K4's row tile (three warpgroups): a tap table row each
+_SPLIT_WAVES = 8  # narrow K3: blocks an SM
 _INT_MAX = 2**31 - 1
 
 
@@ -114,6 +128,80 @@ def tap_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, kshape) -> torch.Tensor:
     return dw.reshape(*kd, Ci, Co)
 
 
+def kernel_tile(mode: int, dtype, ci: int, co: int) -> tuple[int, int, int]:
+    """(BM, BN, BK) of csrc/tap_conv.cu's block for this call: BM x BN
+    outputs (rows x columns), reduction steps of BK.  bf16 K3 and K4 (the
+    wgmma body, steps of _STEP): K3 128 x 256, or 64 x 64 when Co <= 64
+    (three blocks an SM); K4 _DX_BM rows x an N tile that divides Ci where
+    one can (832 = 4 x 208), 64 when Ci <= 64, else 256.  The f32 kernels
+    and bf16 K5: 128 x 128, or 128 x 32 for at most 32 output columns, in
+    steps of 16 (f32) or 32 (bf16)."""
+    bf16 = dtype == torch.bfloat16
+    if bf16 and mode == _FWD:
+        return (64, 64, _STEP) if co <= 64 else (128, 256, _STEP)
+    if bf16 and mode == _DX:
+        return _DX_BM, (64 if ci <= 64 else 208 if ci % 208 == 0 else 256), _STEP
+    n = ci if mode == _DX else co
+    return _BM, (128 if n > 32 else 32), (32 if bf16 else 16)
+
+
+def fwd_split_plan(rows: int, ci: int, co: int, ntaps: int, sms: int) -> tuple[int, int]:
+    """(groups S, steps per group) of bf16 K3's reduction at its tile:
+    steps over the flat (tap, ci) index, group z taking steps [z * per,
+    ...), none left empty.  Co <= 64 (three blocks an SM): enough groups
+    for ~_SPLIT_WAVES blocks on each of the card's `sms` SMs.  Wider (one
+    block an SM): the S <= 8 with the fewest waves of blocks on `sms` SMs
+    per group, the smallest on a tie (PrimaryCaps' pose conv on 132 SMs:
+    100 tiles x 5 at the train shape, 88 x 3 at serving)."""
+    bm, bn, bk = kernel_tile(_FWD, torch.bfloat16, ci, co)
+    steps = -(-ntaps * ci // bk)
+    if steps == 0:
+        return 1, 0
+    tiles = -(-rows // bm) * -(-co // bn)
+    if co <= 64:
+        s = -(-_SPLIT_WAVES * sms // tiles)
+    else:
+        s = min(range(1, 9), key=lambda k: (-(-tiles * k // sms) / k, k))
+    per = -(-steps // min(steps, s))
+    return -(-steps // per), per
+
+
+def dx_tap_table(batch: int, sp, kd, bm: int) -> np.ndarray:
+    """bf16 K4's tap lists: int32 (tiles, 1 + ntaps), one row per tile of
+    bm canvas rows (of B * prod(sp); the kernel's tile is _DX_BM),
+    [count, tap, ...] with the taps in row-major order.  A tap is listed
+    when the gcan row it reads, p - off(t), is a valid output position
+    for some row p of the tile, that is when 0 <= coord_d(p) - k_d(t) <
+    o_d in every spatial dim d."""
+    od = tuple(d - k + 1 for d, k in zip(sp, kd))
+    coords = np.indices(sp).reshape(len(sp), -1).T  # (canvas rows of a sample, rank)
+    taps = np.array(list(itertools.product(*(range(k) for k in kd))))  # (ntaps, rank)
+    q = coords[:, None, :] - taps[None]
+    live = ((q >= 0) & (q < np.array(od))).all(-1)  # (rows of a sample, ntaps)
+    rows = batch * len(coords)
+    tiles = -(-rows // bm)
+    live = np.concatenate([np.tile(live, (batch, 1)),
+                           np.zeros((tiles * bm - rows, len(taps)), bool)])
+    live = live.reshape(tiles, bm, len(taps)).any(1)
+    table = np.zeros((tiles, 1 + len(taps)), np.int32)
+    table[:, 0] = live.sum(1)
+    for i, row in enumerate(live):
+        listed = np.flatnonzero(row)
+        table[i, 1:1 + len(listed)] = listed
+    return table
+
+
+_DX_TABLES: dict = {}  # (batch, sp, kd, bm, device) -> dx_tap_table on that device
+
+
+def _dx_taps_on(device, batch, sp, kd, bm) -> torch.Tensor:
+    key = (batch, tuple(sp), tuple(kd), bm, str(device))
+    t = _DX_TABLES.get(key)
+    if t is None:
+        t = _DX_TABLES[key] = torch.from_numpy(dx_tap_table(batch, sp, kd, bm)).to(device)
+    return t
+
+
 def library_operands(x, w, g=None, channels_last: bool = False):
     """The JAX-layout operands as cuDNN takes them: x (B, Ci, *sp), w (Co,
     Ci, *k), g (B, Co, *out), in channels_last memory when asked (2-D
@@ -154,8 +242,9 @@ def _kernel_fn():
     from picad_tpu_torch.ops import _build
 
     fn = _build.load("tap_conv").picad_tap_conv
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -176,8 +265,10 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
 
 
 def _launch(mode: int, name: str, a, b, out, x_shape, kshape) -> None:
-    """Check what csrc/tap_conv.cu cannot take, then launch it on the
-    current stream; raises if the launch fails."""
+    """Check what csrc/tap_conv.cu cannot take, pick its tile, make the
+    index plans of its bf16 K3 and K4 at that tile (K3's f32 partials
+    workspace, K4's tap table, cached per geometry and device), then
+    launch it on the current stream; raises if the launch fails."""
     sp, kd, od = _geometry(x_shape, kshape)
     Ci, Co = kshape[-2], kshape[-1]
     if len(sp) > _MAX_RANK:
@@ -189,14 +280,28 @@ def _launch(mode: int, name: str, a, b, out, x_shape, kshape) -> None:
     ntaps = math.prod(kd)
     if canvas * max(Ci, Co) > _INT_MAX or ntaps * Ci * Co > _INT_MAX:
         raise ValueError(f"{name} kernel: the operands exceed int32 indexing")
+    wgmma = a.dtype == torch.bfloat16 and mode != _DW  # rows in grid.x, no limit
+    bm, bn, bk = kernel_tile(mode, a.dtype, Ci, Co)
     rows = {_FWD: B * math.prod(od), _DX: canvas, _DW: Ci}[mode]
-    if -(-rows // _BM) > 65535 or ntaps > 65535:
+    if (not wgmma and -(-rows // bm) > 65535) or ntaps > 65535:
         raise ValueError(f"{name} kernel: {rows} rows or {ntaps} taps exceed the grid")
+    taps, ws, splits = None, None, 1
+    if wgmma and mode == _FWD:
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        splits, _ = fwd_split_plan(rows, Ci, Co, ntaps, sms)
+        if splits > 1:
+            if splits * rows * Co > _INT_MAX:
+                raise ValueError(f"{name} kernel: the split workspace exceeds int32 indexing")
+            ws = torch.empty((splits, rows, Co), dtype=torch.float32, device=a.device)
+    elif wgmma and mode == _DX:
+        taps = _dx_taps_on(a.device, B, sp, kd, bm)
     pad = (1,) * (_MAX_RANK - len(sp))  # leading dims of size 1
     with torch.cuda.device(a.device):
         err = _kernel_fn()(
             mode, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            B, Ci, Co, *(pad + sp), *(pad + kd), int(a.dtype == torch.bfloat16),
+            B, Ci, Co, *(pad + sp), *(pad + kd), int(a.dtype == torch.bfloat16), bm, bn, bk,
+            None if taps is None else taps.data_ptr(), 1 + ntaps,
+            None if ws is None else ws.data_ptr(), splits,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -214,7 +319,7 @@ def tap_conv_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_cuda("tap_conv_fwd", x, wq)
     out = torch.empty((x.shape[0], *od, w.shape[-1]), dtype=x.dtype, device=x.device)
     _launch(_FWD, "tap_conv_fwd", x, wq, out, x.shape, w.shape)
-    tap_conv_fwd.launches += 1
+    _count(tap_conv_fwd, w.shape[-1])
     return out
 
 
@@ -238,7 +343,7 @@ def tap_conv_dx(g: torch.Tensor, w: torch.Tensor, x_shape) -> torch.Tensor:
     _check_cuda("tap_conv_dx", gcan, wq)
     dx = torch.empty((x_shape[0], *sp, w.shape[-2]), dtype=g.dtype, device=g.device)
     _launch(_DX, "tap_conv_dx", gcan, wq, dx, tuple(x_shape), w.shape)
-    tap_conv_dx.launches += 1
+    _count(tap_conv_dx, w.shape[-1])
     return dx
 
 
@@ -256,13 +361,18 @@ def tap_conv_dw(x: torch.Tensor, g: torch.Tensor, kshape) -> torch.Tensor:
     _check_cuda("tap_conv_dw", x, gq)
     dw = torch.empty(tuple(kshape), dtype=torch.float32, device=x.device)
     _launch(_DW, "tap_conv_dw", x, gq, dw, x.shape, kshape)
-    tap_conv_dw.launches += 1
+    _count(tap_conv_dw, kshape[-1])
     return dw
 
 
-tap_conv_fwd.launches = 0
-tap_conv_dx.launches = 0
-tap_conv_dw.launches = 0
+def _count(fn, co: int) -> None:
+    """One launch of fn's kernel, counted in all and for its Co."""
+    fn.launches += 1
+    fn.launches_by_co[co] = fn.launches_by_co.get(co, 0) + 1
+
+
+for _fn in (tap_conv_fwd, tap_conv_dx, tap_conv_dw):
+    _fn.launches, _fn.launches_by_co = 0, {}
 
 
 class _TapConv(torch.autograd.Function):

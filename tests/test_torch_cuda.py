@@ -238,6 +238,20 @@ TAP_CASES = [
 ]
 
 
+# bf16 K3's split path (Co <= 64) at ragged row counts, and K4's tap table
+# over several 192-row tiles
+SPLIT_CASES = [
+    ((14, 28, 28, 832), (9, 9, 832, 32)),  # the act conv at the serving batch: 5600 rows
+    ((2, 13, 11, 24), (5, 3, 24, 16)),  # Co 16, small ragged canvas, kh != kw
+    ((3, 12, 10, 40), (3, 3, 40, 64)),  # Co 64, the widest split tile
+]
+DX_TABLE_CASES = [
+    ((2, 6, 12, 10, 16), (3, 5, 3, 16, 24)),  # rank 3, kh != kw: 8 tiles
+    ((2, 20, 18, 32), (5, 3, 32, 64)),  # kh != kw, Co % 64 == 0 (W by TMA): 4 tiles
+    ((2, 9, 10, 96), (3, 3, 96, 16)),  # Ci 96: K4's 256-wide N tile
+]
+
+
 def _tap_inputs(card, x_shape, k_shape, dtype, seed=0):
     gen = torch.Generator(device=card).manual_seed(seed)
     out = (x_shape[0],) + tuple(d - k + 1 for d, k in zip(x_shape[1:-1], k_shape[:-2]))
@@ -250,14 +264,14 @@ def _tap_inputs(card, x_shape, k_shape, dtype, seed=0):
 def _check_tap_kernels(card, x_shape, k_shape, dtype):
     """K3, K4 and K5 once each against their plain versions."""
     x, w, g = _tap_inputs(card, x_shape, k_shape, dtype)
-    before = (tapconv.tap_conv_fwd.launches, tapconv.tap_conv_dx.launches,
-              tapconv.tap_conv_dw.launches)
+    fns, co = (tapconv.tap_conv_fwd, tapconv.tap_conv_dx, tapconv.tap_conv_dw), k_shape[-1]
+    before = [(fn.launches, fn.launches_by_co.get(co, 0)) for fn in fns]
     out = tapconv.tap_conv_fwd(x, w)
     dx = tapconv.tap_conv_dx(g, w, x.shape)
     dw = tapconv.tap_conv_dw(x, g, w.shape)
     torch.cuda.synchronize()
-    assert (tapconv.tap_conv_fwd.launches, tapconv.tap_conv_dx.launches,
-            tapconv.tap_conv_dw.launches) == tuple(n + 1 for n in before)
+    assert [(fn.launches, fn.launches_by_co[co]) for fn in fns] == [
+        (n + 1, n_co + 1) for n, n_co in before]
     assert_close_to_plain(out, tapconv.tap_conv_fwd_plain(x, w), "K3 out")
     assert_close_to_plain(dx, tapconv.tap_conv_dx_plain(g, w, x.shape), "K4 dx")
     assert_close_to_plain(dw, tapconv.tap_conv_dw_plain(x, g, w.shape), "K5 dW")
@@ -277,6 +291,29 @@ def test_tap_conv_kernels_at_the_train_shape(card, no_tf32, co, dtype):
     _check_tap_kernels(card, (16, 28, 28, 832), (9, 9, 832, co), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape,k_shape", SPLIT_CASES + DX_TABLE_CASES)
+def test_tap_conv_kernels_on_the_split_and_table_paths(card, no_tf32, x_shape, k_shape, dtype):
+    if k_shape[-1] <= 64:  # bf16 K3 splits its reduction here
+        rows = x_shape[0] * int(np.prod([d - k + 1 for d, k in zip(x_shape[1:-1], k_shape)]))
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        assert tapconv.fwd_split_plan(rows, k_shape[-2], k_shape[-1],
+                                      int(np.prod(k_shape[:-2])), sms)[0] > 1
+    _check_tap_kernels(card, x_shape, k_shape, dtype)
+
+
+@pytest.mark.parametrize("co", [32, 512])
+def test_tap_conv_bf16_kernels_are_deterministic(card, co):
+    """Two launches of K3 (the split path at Co 32) and of K4 (the tap
+    table; W by TMA at Co 512) give the same bits: fixed summation order,
+    no atomics."""
+    x, w, g = _tap_inputs(card, (16, 28, 28, 832), (9, 9, 832, co), torch.bfloat16, seed=7)
+    runs = [(tapconv.tap_conv_fwd(x, w), tapconv.tap_conv_dx(g, w, x.shape)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]), "K3"
+    assert torch.equal(runs[0][1], runs[1][1]), "K4"
+
+
 def _nan_guarded(t: torch.Tensor, guard: int = 4096) -> torch.Tensor:
     """A copy of t inside a buffer whose `guard` elements on either side
     are NaN: a kernel that reads past t poisons its sums."""
@@ -287,12 +324,14 @@ def _nan_guarded(t: torch.Tensor, guard: int = 4096) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("x_shape,k_shape", [TAP_CASES[1], TAP_CASES[2]])
+@pytest.mark.parametrize("x_shape,k_shape",
+                         [TAP_CASES[1], TAP_CASES[2], SPLIT_CASES[2]] + DX_TABLE_CASES)
 def test_tap_conv_kernels_read_nothing_outside_their_operands(card, no_tf32, x_shape,
                                                               k_shape, dtype):
     """Ragged canvases, every operand between NaN guards (gcan too, through
     the launch helper the K4 wrapper uses): the rows before and past the
-    canvas must read as zeros inside the kernels, never from memory."""
+    canvas must read as zeros inside the kernels, never from memory.  In
+    bf16 K3 takes its split path and K4 its tap table (W by TMA at Co 64)."""
     x, w, g = _tap_inputs(card, x_shape, k_shape, dtype, seed=3)
     xg, wg, gg = _nan_guarded(x), _nan_guarded(w), _nan_guarded(g)
     out = tapconv.tap_conv_fwd(xg, wg)
@@ -323,6 +362,22 @@ def test_tap_conv_kernels_refuse_what_they_cannot_take(card):
     with pytest.raises(ValueError, match="one CUDA device"):
         tapconv.tap_conv_valid(x, w.cpu())
     assert tapconv.tap_conv_fwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fwd", "dx"])
+def test_tap_conv_kernel_refuses_a_tile_it_is_not_built_for(card, monkeypatch, mode, dtype):
+    """The wrapper's tile reaches the kernel, which launches nothing at a
+    tile it is not built for (64 x 128; for bf16 K4 that is a tap table
+    of one row per 64 canvas rows, which the 192-row body would misread)."""
+    x, w, g = _tap_inputs(card, (2, 12, 12, 16), (9, 9, 16, 8), dtype)
+    tile = tapconv.kernel_tile
+    monkeypatch.setattr(tapconv, "kernel_tile", lambda *a: (64, 128, tile(*a)[2]))
+    fn = tapconv.tap_conv_fwd if mode == "fwd" else tapconv.tap_conv_dx
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fn(x, w) if mode == "fwd" else fn(g, w, x.shape)
+    assert fn.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
