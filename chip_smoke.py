@@ -10,8 +10,9 @@ failure exits non-zero (no phase is caught and passed over):
   2 build   nvcc on every picad_tpu_torch/csrc/*.cu for sm_90a, one
             process per source, all started together; build seconds,
             ptxas's register/spill report, and the count of HGMMA (wgmma)
-            instructions in the built tap-conv library (cuobjdump -sass;
-            fails at 0: bf16 K3 and K4 run on wgmma).
+            instructions in each of the built tap-conv library's bf16
+            kernels (cuobjdump -sass; fails if K3's, K4's or K5's has none:
+            all three run on wgmma).
   3 kernel  each kernel against its plain PyTorch version on the same
             inputs, in bf16 and f32, max error <= 1e-4 * max|plain| (f32
             sums in another order; bf16 outputs also one bf16 ulp):
@@ -26,7 +27,8 @@ failure exits non-zero (no phase is caught and passed over):
             and library times and the bound at the train shapes (K3-K5:
             cuDNN in NCHW and channels_last, the faster as library_ms;
             each tap kernel's useful TFLOP/s and its work ratio, the
-            multiply-adds its tiles compute over the useful ones).
+            multiply-adds its tiles compute over the useful ones, from
+            tapconv.work_ratio; K5's plan: form, tile, tap groups, split).
   4 slice   the CapsNet eval forward at 224^2, 24 classes, seeded
             weights, batch 2, f32 with TF32 off: card (CUDA kernel) vs CPU
             (plain version); same argmax class, scores and sigmoid seg
@@ -156,12 +158,24 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip()
 
 
-def hgmma_count(lib) -> int:
-    """HGMMA (wgmma) instructions in a built library's SASS."""
+# the tap-conv library's bf16 kernels, by a fragment of their names
+WGMMA_KERNELS = {"K3": "tap_conv_fwd_wgmma", "K4": "tap_conv_dx_wgmma",
+                 "K5": "tap_conv_dw_wgmma"}
+
+
+def hgmma_counts(lib) -> dict:
+    """HGMMA (wgmma) instructions in a built library's SASS, summed over
+    the functions of each of WGMMA_KERNELS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     r = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                        timeout=120, check=True)
-    return len(re.findall(r"\bHGMMA\b", r.stdout))
+    counts = dict.fromkeys(WGMMA_KERNELS, 0)
+    for fn in r.stdout.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        for k, frag in WGMMA_KERNELS.items():
+            if frag in name:
+                counts[k] += len(re.findall(r"\bHGMMA\b", fn))
+    return counts
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -333,30 +347,18 @@ TAP_LIBRARY = {  # one cuDNN call each, on the operands of tapconv.library_opera
 }
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 TAP_MODES = {"tap_conv_fwd": tapconv._FWD, "tap_conv_dx": tapconv._DX,
              "tap_conv_dw": tapconv._DW}
 
 
-def tap_work_ratio(name: str, batch: int, co: int, ci: int = 832) -> float:
-    """Multiply-adds the bf16 kernel computes at PrimaryCaps' shape over
-    the useful ones, at the tile the wrapper gives it
-    (tapconv.kernel_tile): rows, columns and reduction steps padded to the
-    tile; K4 runs each row tile's listed taps (tapconv.dx_tap_table)."""
-    mode = TAP_MODES[name]
-    bm, bn, bk = tapconv.kernel_tile(mode, torch.bfloat16, ci, co)
-    rows, red = batch * 400, 81 * ci
-    useful = rows * red * co
-    if mode == tapconv._FWD:
-        return _cdiv(rows, bm) * bm * _cdiv(co, bn) * bn * _cdiv(red, bk) * bk / useful
-    if mode == tapconv._DX:
-        table = tapconv.dx_tap_table(batch, (28, 28), (9, 9), bm)
-        red = sum(_cdiv(int(n) * co, bk) * bk for n in table[:, 0])
-        return bm * red * _cdiv(ci, bn) * bn / useful
-    return _cdiv(ci, bm) * bm * _cdiv(co, bn) * bn * 81 * _cdiv(rows, bk) * bk / useful
+def dw_plan_summary(batch: int, co: int) -> dict:
+    """bf16 K5's plan at PrimaryCaps' shape on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tapconv.dw_plan(batch, (28, 28), (9, 9), 832, co, sms)
+    return {"form": plan.form, "tile": list(plan.tile), "groups": len(plan.groups),
+            "max_taps_a_group": max(sum(map(len, g)) for g in plan.groups),
+            "splits": plan.splits, "rows_per_split": plan.rows_per_split,
+            "blocks": plan.blocks, "sms": sms}
 
 
 def check_tapconv(batch: int, co: int, dtype, seed: int, timed: bool) -> dict:
@@ -377,6 +379,8 @@ def check_tapconv(batch: int, co: int, dtype, seed: int, timed: bool) -> dict:
                         lambda: tapconv.tap_conv_dw_plain(x, g, w.shape)),
     }
     res = {"batch": batch, "co": co, "dtype": str(dtype).replace("torch.", "")}
+    if dtype == torch.bfloat16:
+        res["dw_plan"] = dw_plan_summary(batch, co)
     for name, (kernel, plain) in fns.items():
         out = kernel()
         torch.cuda.synchronize()
@@ -400,7 +404,9 @@ def check_tapconv(batch: int, co: int, dtype, seed: int, timed: bool) -> dict:
             r["library_ms"] = min(r["library_ms_by_layout"].values())
             r["bound_ms"], r["bound_by"] = bound(nbytes[name], flops, dtype)
             r["useful_tflops"] = flops / r["kernel_ms"] / 1e9
-            r["work_ratio"] = tap_work_ratio(name, batch, co)
+            r["work_ratio"] = tapconv.work_ratio(
+                TAP_MODES[name], batch, (28, 28), (9, 9), 832, co,
+                torch.cuda.get_device_properties(0).multi_processor_count)
     return res
 
 
@@ -612,14 +618,15 @@ def main() -> int:
     wall = time.perf_counter() - t0
     ptxas = {b.name: re.findall(r"Used \d+ registers|\d+ bytes spill stores, \d+ bytes spill loads",
                                    b.log) for b in builds}
-    hgmma = hgmma_count(next(b.path for b in builds if b.name == "tap_conv"))
+    hgmma = hgmma_counts(next(b.path for b in builds if b.name == "tap_conv"))
     results["build"] = {"wall_s": wall, "per_source_s": {b.name: b.seconds for b in builds},
                         "ptxas": ptxas, "tap_conv_hgmma": hgmma}
-    if hgmma == 0:
-        raise AssertionError("no HGMMA instruction in the tap-conv library: K3/K4 lost wgmma")
+    if not all(hgmma.values()):
+        raise AssertionError(f"a bf16 tap-conv kernel without HGMMA (lost wgmma): {hgmma}")
     phase(2, "build", f"{len(builds)} source(s) for sm_90a in {wall:.1f} s: "
           + "; ".join(f"{b.name} {b.seconds:.1f} s {ptxas[b.name]}" for b in builds)
-          + f" | HGMMA instructions in tap_conv: {hgmma}")
+          + f" | HGMMA instructions in tap_conv's bf16 kernels: {hgmma}, "
+          f"{sum(hgmma.values())} in all (K3, K4 and K5 each on wgmma)")
 
     # 3 kernels vs plain
     reset_counts()
@@ -665,6 +672,9 @@ def main() -> int:
         f"{stress['var_rel_err']:.2e} (rel) | tap_conv (K3/K4/K5) " + "; ".join(
             f"{c['dtype']} B {c['batch']} Co {c['co']} err " + "/".join(
                 f"{c[k]['err']:.2e}" for k in TAP_LIBRARY)
+            + ("" if "dw_plan" not in c else " K5 plan: {form} form, tile {tile}, {groups} tap "
+               "groups (G <= {max_taps_a_group} taps), S {splits} splits of {rows_per_split} "
+               "rows, {blocks} blocks on {sms} SMs".format(**c["dw_plan"]))
             + "".join(f" {k}" + timing(c[k]) + f" {c[k]['useful_tflops']:.1f} TFLOP/s useful, "
                       f"work ratio {c[k]['work_ratio']:.3f}"
                       for k in TAP_LIBRARY if "kernel_ms" in c[k])

@@ -13,8 +13,9 @@
 //   K4  dx[p, ci]  = sum_t sum_co gcan[p - off(t), co] W[t, ci, co]
 //   K5  dW[t, ci, co] = sum_m x[base(m) + off(t), ci] g[m, co]
 //
-// gcan is g zero-embedded in the canvas (the wrapper pads it); a row
-// before the canvas reads as zero here, from no memory.  Every product is
+// gcan is g zero-embedded in the canvas (K4's wrapper pads it; K5's
+// canvas form lays it out itself); a row before the canvas reads as zero
+// here, from no memory.  Every product is
 // of inputs in x's type, summed in f32; K3 and K4 write x's type, K5 f32.
 // Up to three spatial dims (leading ones of size 1 for rank 1 and 2).
 //
@@ -24,6 +25,11 @@
 // TFLOP/s), against ~0.03 ms for its bytes (x 20.9 MB, W 69 MB, out 6.6
 // MB; K5's f32 dW 138 MB): bound by operations.  The act conv (Co 32)
 // does 27.6 GFLOP, 0.028 ms.
+//
+// Every bf16 kernel runs on wgmma; f32 K3/K4/K5 run one FP32-core body
+// (full f32, never TF32): a 128 x BN tile (BN 128, or 32 for an output of
+// at most 32 columns), 256 threads, a two-stage cp.async ring in static
+// shared memory.
 //
 // bf16 K3 and K4: one Hopper GEMM body (tap_conv_wgmma).  The reduction
 // runs in steps of 64 over the flat (tap, channel) index r = i * K + c of
@@ -66,23 +72,43 @@
 //     costs the same copy, and a taller tile copies less W per row).  N
 //     tile 208 for Ci = 832 (4 x 208, no padding): 264 blocks at the train
 //     shape, 2.0 waves of one block an SM (4-stage ring, 201 KB).
-// f32 K3/K4/K5 keep the first version's FP32-core body (full f32, never
-// TF32), and bf16 K5 its wmma body: a 128 x BN tile (BN 128, or 32 for
-// an output of at most 32 columns), 256 threads,
-// two-stage cp.async ring in static shared memory; K5 gives every (tap,
-// Ci tile, Co tile) its own block and writes each dW entry once.
+//
+// bf16 K5: dW is a GEMM with Ci as its rows, Co as its columns and a
+// reduction over positions, so A = x^T lies M-major in shared memory
+// (wgmma's A-transpose flag; no copy of x).  128 x 256 tiles (two
+// warpgroups; a warpgroup whose 64 Ci rows all lie past Ci issues no
+// wgmma), steps of 64 positions, the 4-stage ring; two forms
+// (tapconv.dw_plan picks one by Co):
+//   Co > 64 (the pose conv): the valid-row form, K3's pattern transposed.
+//     Block (Ci tile, Co tile, tap) sums over the valid output positions
+//     m: A rows x[base(m) + off(t), ci0 : ci0 + 128] gathered by
+//     cp.async (zeros past Mv), B = g as the 2-D (Mv, Co) matrix in TMA
+//     boxes of 64 x 64, MN-major.  7 x 2 x 81 = 1134 blocks at the train
+//     shape (8.6 waves), each dW entry written once, work ratio 1.0.
+//   Co <= 64 (the act conv): the canvas form, dW[t] = sum_p x[p] (x)
+//     gcan[p - off(t)] over every canvas row p, so one A tile of x rows
+//     (two TMA boxes) serves every tap of the block: 1.96x the useful rows
+//     at 28^2 -> 20^2, but x is read once for up to 8 taps instead of once
+//     a tap.  B is four TMA boxes of 64 rows x 128 bytes.  For Co <= 32 a
+//     box holds two taps whose row shifts differ by one (neighbours in the
+//     last kernel dim): a first kernel lays g out as gpair[r] = [gcan[r -
+//     1], gcan[r]] (channels padded to 32) in the workspace, so one box
+//     row at r = p - off(t) holds tap t + 1's and tap t's rows (a 64-byte
+//     box a tap doubled the copy requests, and they set the pace); else
+//     gcan padded to 64 channels, a tap a box.  TMA fills zeros before and past the
+//     canvas.  The wrapper's box table lists each block's taps
+//     (tapconv.dw_plan): at the 9 x 9 act conv 45 boxes, 12 tap groups.
+//     The canvas rows split into S groups whose f32 partials (S, taps,
+//     Ci, Co) tap_conv_dw_reduce sums in a fixed order (no atomics).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int FWD = 0, DX = 1, DW = 2;
 constexpr int BM = 128;  // output rows a block
@@ -126,11 +152,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <typename T, int MODE, int BN>
+// ------------------------------------------------------- f32 K3, K4, K5
+
+constexpr int VEC = 4;  // floats a 16-byte copy
+constexpr int BK = 16;  // reduction depth a step
+static_assert(BK / VEC == 4, "four 16-byte copies a row of BK");
+
+template <int MODE, int BN>
 struct Cfg {
-  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int VEC = 16 / (int)sizeof(T);  // elements a 16-byte copy
-  static constexpr int BK = BF16 ? 32 : 16;        // reduction depth a step
   static constexpr int PAD = VEC;                  // 16 bytes a smem row
   static constexpr bool A_COL = MODE == DW;        // A stored [BK][BM]
   static constexpr bool B_COL = MODE == DX;        // B stored [BN][BK]
@@ -138,22 +167,20 @@ struct Cfg {
   static constexpr int LDB = B_COL ? BK + PAD : BN + PAD;
   static constexpr int A_ELEMS = A_COL ? BK * LDA : BM * LDA;
   static constexpr int B_ELEMS = B_COL ? BN * LDB : BK * LDB;
-  static constexpr int STAGE_BYTES = (A_ELEMS + B_ELEMS) * (int)sizeof(T);
-  static_assert((A_ELEMS * (int)sizeof(T)) % 128 == 0 && STAGE_BYTES % 128 == 0,
+  static constexpr int STAGE_BYTES = (A_ELEMS + B_ELEMS) * 4;
+  static_assert((A_ELEMS * 4) % 128 == 0 && STAGE_BYTES % 128 == 0,
                 "tiles keep 128-byte alignment");
   static_assert(2 * STAGE_BYTES <= 48 * 1024, "static shared memory");
-  static_assert(BK / VEC == 4, "four 16-byte copies a row of BK");
 };
 
 // Stage step s's A and B tiles (zeros outside the operands).  a_row[q]:
 // for K3 the canvas row of this thread's output row q (-1 past the end),
 // for K4 its canvas row p (-1 past the end).
-template <typename T, int MODE, int BN>
-__device__ __forceinline__ void load_step(T* As, T* Bs, const T* __restrict__ a,
-                                          const T* __restrict__ b, const Geo& g, int s,
+template <int MODE, int BN>
+__device__ __forceinline__ void load_step(float* As, float* Bs, const float* __restrict__ a,
+                                          const float* __restrict__ b, const Geo& g, int s,
                                           int m0, int n0, int tap, const int a_row[2]) {
-  using C = Cfg<T, MODE, BN>;
-  constexpr int VEC = C::VEC, BK = C::BK;
+  using C = Cfg<MODE, BN>;
   const int tid = threadIdx.x;
   if constexpr (MODE == FWD || MODE == DX) {
     const int K = MODE == FWD ? g.Ci : g.Co;  // A's channels
@@ -204,27 +231,10 @@ __device__ __forceinline__ void load_step(T* As, T* Bs, const T* __restrict__ a,
   }
 }
 
-__device__ __forceinline__ void store8(float* dst, const float* v) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v) {
-  uint32_t w[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k]));
-    const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k + 1]));
-    w[k] = lo | (hi << 16);
-  }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-template <typename T, int MODE, int BN, typename OutT>
-__device__ __forceinline__ void tap_gemm(const T* __restrict__ a, const T* __restrict__ b,
-                                         OutT* __restrict__ out, const Geo& g) {
-  using C = Cfg<T, MODE, BN>;
-  constexpr int BK = C::BK;
+template <int MODE, int BN>
+__device__ __forceinline__ void tap_gemm(const float* __restrict__ a, const float* __restrict__ b,
+                                         float* __restrict__ out, const Geo& g) {
+  using C = Cfg<MODE, BN>;
   __shared__ __align__(128) unsigned char smem[2 * C::STAGE_BYTES];
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN;
@@ -246,181 +256,105 @@ __device__ __forceinline__ void tap_gemm(const T* __restrict__ a, const T* __res
   const int nsteps = MODE == FWD ? g.ntaps * ((g.Ci + BK - 1) / BK)
                      : MODE == DX ? g.ntaps * ((g.Co + BK - 1) / BK)
                                   : (g.Mv + BK - 1) / BK;
-  auto stage_a = [&](int st) { return reinterpret_cast<T*>(smem + st * C::STAGE_BYTES); };
+  auto stage_a = [&](int st) { return reinterpret_cast<float*>(smem + st * C::STAGE_BYTES); };
   auto stage_b = [&](int st) { return stage_a(st) + C::A_ELEMS; };
 
-  if constexpr (C::BF16) {
-    constexpr int WARPS_N = BN / 32, WARPS_M = 8 / WARPS_N;
-    constexpr int WTM = BM / WARPS_M, FM = WTM / 16, FN = 2;
-    using LayA = std::conditional_t<C::A_COL, wmma::col_major, wmma::row_major>;
-    using LayB = std::conditional_t<C::B_COL, wmma::col_major, wmma::row_major>;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+  constexpr int THREADS_N = BN >= 64 ? 16 : 8, THREADS_M = NTHREADS / THREADS_N;
+  constexpr int TN = BN / THREADS_N, TM = BM / THREADS_M;
+  const int tn = tid % THREADS_N, tm = tid / THREADS_N;
+  float acc[TM][TN];
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-    if (nsteps > 0) load_step<T, MODE, BN>(stage_a(0), stage_b(0), a, b, g, 0, m0, n0, tap, a_row);
+  if (nsteps > 0) load_step<MODE, BN>(stage_a(0), stage_b(0), a, b, g, 0, m0, n0, tap, a_row);
+  cp_async_commit();
+  for (int s = 0; s < nsteps; ++s) {
+    if (s + 1 < nsteps)
+      load_step<MODE, BN>(stage_a((s + 1) & 1), stage_b((s + 1) & 1), a, b, g, s + 1, m0, n0,
+                          tap, a_row);
     cp_async_commit();
-    for (int s = 0; s < nsteps; ++s) {
-      if (s + 1 < nsteps)
-        load_step<T, MODE, BN>(stage_a((s + 1) & 1), stage_b((s + 1) & 1), a, b, g, s + 1, m0,
-                               n0, tap, a_row);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const T* As = stage_a(s & 1);
-      const T* Bs = stage_b(s & 1);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayA> fa[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayB> fb[FN];
-#pragma unroll
-        for (int i = 0; i < FM; ++i) {
-          const int r = wm * WTM + i * 16;
-          wmma::load_matrix_sync(fa[i], C::A_COL ? As + kk * C::LDA + r : As + r * C::LDA + kk,
-                                 C::LDA);
-        }
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          const int c = wn * 32 + j * 16;
-          wmma::load_matrix_sync(fb[j], C::B_COL ? Bs + c * C::LDB + kk : Bs + kk * C::LDB + c,
-                                 C::LDB);
-        }
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    cp_async_wait<0>();
+    cp_async_wait<1>();
     __syncthreads();
-    // epilogue: each warp stages one 16 x 16 fragment at a time in its own
-    // 1 KB of the (now idle) ring and writes 8 outputs a lane
-    float* scratch = reinterpret_cast<float*>(smem) + warp * 256;
-    const int r = lane >> 1, c8 = (lane & 1) * 8;
+    const float* As = stage_a(s & 1);
+    const float* Bs = stage_b(s & 1);
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+    for (int k = 0; k < BK; ++k) {
+      float av[TM], bv[TN];
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int row = m0 + wm * WTM + i * 16 + r;
-        const int col = n0 + wn * 32 + j * 16 + c8;
-        if (row < M && col < N) store8(out + (size_t)row * N + col, scratch + r * 16 + c8);
-        __syncwarp();
+      for (int i = 0; i < TM; ++i) {
+        const int r = tm + THREADS_M * i;
+        av[i] = C::A_COL ? As[k * C::LDA + r] : As[r * C::LDA + k];
       }
-  } else {
-    constexpr int THREADS_N = BN >= 64 ? 16 : 8, THREADS_M = NTHREADS / THREADS_N;
-    constexpr int TN = BN / THREADS_N, TM = BM / THREADS_M;
-    const int tn = tid % THREADS_N, tm = tid / THREADS_N;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    if (nsteps > 0) load_step<T, MODE, BN>(stage_a(0), stage_b(0), a, b, g, 0, m0, n0, tap, a_row);
-    cp_async_commit();
-    for (int s = 0; s < nsteps; ++s) {
-      if (s + 1 < nsteps)
-        load_step<T, MODE, BN>(stage_a((s + 1) & 1), stage_b((s + 1) & 1), a, b, g, s + 1, m0,
-                               n0, tap, a_row);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const float* As = reinterpret_cast<const float*>(stage_a(s & 1));
-      const float* Bs = reinterpret_cast<const float*>(stage_b(s & 1));
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        float av[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int r = tm + THREADS_M * i;
-          av[i] = C::A_COL ? As[k * C::LDA + r] : As[r * C::LDA + k];
-        }
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int c = tn + THREADS_N * j;
-          bv[j] = C::B_COL ? Bs[c * C::LDB + k] : Bs[k * C::LDB + c];
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    cp_async_wait<0>();
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = m0 + tm + THREADS_M * i;
-      if (row >= M) continue;
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        const int col = n0 + tn + THREADS_N * j;
-        if (col < N) out[(size_t)row * N + col] = acc[i][j];
+        const int c = tn + THREADS_N * j;
+        bv[j] = C::B_COL ? Bs[c * C::LDB + k] : Bs[k * C::LDB + c];
       }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + tm + THREADS_M * i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = n0 + tn + THREADS_N * j;
+      if (col < N) out[(size_t)row * N + col] = acc[i][j];
     }
   }
 }
 
-template <typename T, int BN>
+template <int BN>
 __global__ void __launch_bounds__(NTHREADS)
-tap_conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-                    Geo g) {
-  tap_gemm<T, FWD, BN>(x, w, out, g);
+tap_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    float* __restrict__ out, Geo g) {
+  tap_gemm<FWD, BN>(x, w, out, g);
 }
 
-template <typename T, int BN>
+template <int BN>
 __global__ void __launch_bounds__(NTHREADS)
-tap_conv_dx_kernel(const T* __restrict__ gcan, const T* __restrict__ w, T* __restrict__ dx,
-                   Geo g) {
-  tap_gemm<T, DX, BN>(gcan, w, dx, g);
+tap_conv_dx_kernel(const float* __restrict__ gcan, const float* __restrict__ w,
+                   float* __restrict__ dx, Geo g) {
+  tap_gemm<DX, BN>(gcan, w, dx, g);
 }
 
-template <typename T, int BN>
+template <int BN>
 __global__ void __launch_bounds__(NTHREADS)
-tap_conv_dw_kernel(const T* __restrict__ x, const T* __restrict__ gout,
+tap_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ gout,
                    float* __restrict__ dw, Geo g) {
-  tap_gemm<T, DW, BN>(x, gout, dw, g);
+  tap_gemm<DW, BN>(x, gout, dw, g);
 }
 
-template <typename T, int BN>
+template <int BN>
 int launch(int mode, const void* a, const void* b, void* out, const Geo& g, cudaStream_t st) {
   const int M = mode == FWD ? g.Mv : (mode == DX ? g.Mc : g.Ci);
   const int N = mode == DX ? g.Ci : g.Co;
   if (M == 0 || N == 0) return 0;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, mode == DW ? g.ntaps : 1);
-  const T* ta = static_cast<const T*>(a);
-  const T* tb = static_cast<const T*>(b);
-  if constexpr (std::is_same<T, float>::value) {
-    if (mode == FWD) {
-      tap_conv_fwd_kernel<T, BN><<<grid, NTHREADS, 0, st>>>(ta, tb, static_cast<T*>(out), g);
-      return (int)cudaGetLastError();
-    }
-    if (mode == DX) {
-      tap_conv_dx_kernel<T, BN><<<grid, NTHREADS, 0, st>>>(ta, tb, static_cast<T*>(out), g);
-      return (int)cudaGetLastError();
-    }
-  } else if (mode != DW) {  // bf16 K3 and K4 run the wgmma body (launch_wgmma)
-    return (int)cudaErrorInvalidValue;
-  }
-  tap_conv_dw_kernel<T, BN><<<grid, NTHREADS, 0, st>>>(ta, tb, static_cast<float*>(out), g);
+  const float* ta = static_cast<const float*>(a);
+  const float* tb = static_cast<const float*>(b);
+  float* to = static_cast<float*>(out);
+  if (mode == FWD) tap_conv_fwd_kernel<BN><<<grid, NTHREADS, 0, st>>>(ta, tb, to, g);
+  else if (mode == DX) tap_conv_dx_kernel<BN><<<grid, NTHREADS, 0, st>>>(ta, tb, to, g);
+  else tap_conv_dw_kernel<BN><<<grid, NTHREADS, 0, st>>>(ta, tb, to, g);
   return (int)cudaGetLastError();
 }
 
-// the first body at the caller's tile, bm x bn with reduction steps of
-// bk: one of those it is built for, or cudaErrorInvalidValue
-template <typename T>
-int launch_tile(int mode, int bm, int bn, int bk, const void* a, const void* b, void* out,
-                const Geo& g, cudaStream_t st) {
-  if (bm == BM && bk == Cfg<T, DW, 128>::BK) {
-    if (bn == 128) return launch<T, 128>(mode, a, b, out, g, st);
-    if (bn == 32) return launch<T, 32>(mode, a, b, out, g, st);
+// the f32 body at the caller's tile, bm x bn with reduction steps of bk:
+// one of those it is built for, or cudaErrorInvalidValue
+int launch_f32(int mode, int bm, int bn, int bk, const void* a, const void* b, void* out,
+               const Geo& g, cudaStream_t st) {
+  if (bm == BM && bk == BK) {
+    if (bn == 128) return launch<128>(mode, a, b, out, g, st);
+    if (bn == 32) return launch<32>(mode, a, b, out, g, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -487,26 +421,27 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N], f32 += bf16 * bf16; A K-major,
-// B K-major (TB = 0) or MN-major (TB = 1), both from shared memory
-template <int TB>
+// D[64 x N] (+)= A[64 x 16] B[16 x N], f32 += bf16 * bf16, both from
+// shared memory; A K-major (TA = 0) or M-major (TA = 1), B K-major (TB =
+// 0) or N-major (TB = 1)
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <int TB>
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n208(float (&d)[104], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
@@ -518,7 +453,7 @@ __device__ __forceinline__ void wgmma_n208(float (&d)[104], uint64_t da, uint64_
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103"
-      "}, %104, %105, p, 1, 1, 0, %107;\n}\n"
+      "}, %104, %105, p, 1, 1, %107, %108;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -537,10 +472,10 @@ __device__ __forceinline__ void wgmma_n208(float (&d)[104], uint64_t da, uint64_
         "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
         "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <int TB>
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -553,7 +488,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -576,13 +511,13 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
         "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
-template <int N, int TB>
+template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db) {
-  if constexpr (N == 64) wgmma_n64<TB>(d, da, db);
-  else if constexpr (N == 208) wgmma_n208<TB>(d, da, db);
-  else wgmma_n256<TB>(d, da, db);
+  if constexpr (N == 64) wgmma_n64<TA, TB>(d, da, db);
+  else if constexpr (N == 208) wgmma_n208<TA, TB>(d, da, db);
+  else wgmma_n256<TA, TB>(d, da, db);
 }
 
 template <int MODE, int WGM, int BN>
@@ -729,7 +664,7 @@ __device__ __forceinline__ void tap_conv_wgmma(const __nv_bfloat16* __restrict__
       const uint64_t da = sw128_desc(a_addr + kk * 32, 16, 1024);
       const uint64_t db = MODE == FWD ? sw128_desc(b_addr + kk * 2048, 8192, 1024)
                                       : sw128_desc(b_addr + kk * 32, 16, 1024);
-      wgmma<BN, MODE == FWD ? 1 : 0>(acc, da, db);
+      wgmma<BN, 0, MODE == FWD ? 1 : 0>(acc, da, db);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -779,10 +714,204 @@ tap_conv_dx_wgmma_kernel(const __nv_bfloat16* __restrict__ gcan, const __nv_bflo
   tap_conv_wgmma<DX, DX_WGM, BN, BTMA>(gcan, w, &wmap, dx, nullptr, taps, tap_stride, 0, g);
 }
 
-// K3's second pass: out = sum over the S partials in order, in x's type
-__global__ void tap_conv_fwd_reduce_kernel(const float4* __restrict__ ws,
-                                           __nv_bfloat16* __restrict__ out, int splits,
-                                           size_t n4) {
+// ------------------------------------------------------------ bf16 K5 on wgmma
+
+constexpr int DW_BN = 256;             // bf16 K5's N tile
+constexpr int DW_BOXES = DW_BN / 64;   // B boxes a step, 64 columns (128 bytes) each
+constexpr int DW_CANVAS_CO = 64;       // the canvas form's widest Co (tapconv._DW_CANVAS_CO)
+constexpr int DW_PAIR_CO = 32;         // up to this Co a canvas box holds two taps
+constexpr int DW_TABLE = 1 + 2 * DW_BOXES;  // a row of the box table (tapconv.dw_plan)
+
+// One block: dW rows [m0, m0 + 128) of Ci x 256 columns.  A is M-major:
+// row k of a stage holds the step's position k, Ci [m0 + 64 j, + 64) in
+// the 8 KB block j that warpgroup j multiplies.  B is N-major, up to four
+// boxes of 64 rows x 64 columns in the 128-byte swizzle.
+//   CANVAS = false (the valid-row form): columns [n0, n0 + 256) of Co and
+//     tap blockIdx.z, summed over every valid output position; A rows
+//     gathered by cp.async, B boxes of gmap = g as (Mv, Co).
+//   CANVAS = true: the boxes of row blockIdx.y of `boxes` ([count, base
+//     tap, second tap or -1, ...]), summed over the canvas rows of split z
+//     = blockIdx.z (steps [z * per, ...)); A boxes of xmap = x as (Mc,
+//     Ci); box u takes gmap's rows p - off(base tap), where gmap is, for
+//     Co <= 32, gpair (Mc + 1, 64) with gpair[r] = [gcan[r - 1], gcan[r]]
+//     (channels padded to 32): the second tap (off + 1) in columns 0-31,
+//     the base tap in 32-63; else gcan padded to 64 channels, one tap.
+//     With ws, the split's f32 partials go to ws[z] (taps, Ci, Co).
+template <bool CANVAS>
+__global__ void __launch_bounds__(256)
+tap_conv_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap gmap, float* __restrict__ dw,
+                         float* __restrict__ ws, const int* __restrict__ boxes,
+                         int steps_per_split, Geo g) {
+  using C = HCfg<DW, 2, DW_BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.x * C::BM;
+  const bool live = m0 + wg * 64 < g.Ci;  // this warpgroup's Ci rows exist
+  int n0 = 0, s0 = 0, nsteps, nbox;
+  int tb[DW_BOXES], th[DW_BOXES], off[DW_BOXES];  // each box's taps and row shift
+  if constexpr (CANVAS) {
+    const int* row = boxes + static_cast<size_t>(blockIdx.y) * DW_TABLE;
+    nbox = row[0];
+#pragma unroll
+    for (int u = 0; u < DW_BOXES; ++u) {
+      tb[u] = u < nbox ? row[1 + 2 * u] : -1;
+      th[u] = u < nbox ? row[2 + 2 * u] : -1;
+      off[u] = tb[u] >= 0 ? tap_offset(g, tb[u]) : 0;
+    }
+    s0 = blockIdx.z * steps_per_split;
+    nsteps = max(0, min((g.Mc + HBK - 1) / HBK - s0, steps_per_split));
+  } else {
+    n0 = blockIdx.y * DW_BN;
+    nbox = min(DW_BOXES, (g.Co - n0 + 63) / 64);  // boxes with columns inside Co
+#pragma unroll
+    for (int u = 0; u < DW_BOXES; ++u) {
+      tb[u] = blockIdx.z;
+      th[u] = -1;
+      off[u] = tap_offset(g, blockIdx.z);
+    }
+    nsteps = (g.Mv + HBK - 1) / HBK;
+  }
+  const int arow = tid >> 2;  // valid-row form: the A row this thread copies
+  const uint32_t bars = smem_addr(smem + C::NS * C::STAGE);  // mbarrier of stage i: bars + 8 i
+  if (tid == 0) {
+    for (int i = 0; i < C::NS; ++i) mbar_init(bars + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load = [&](int s, int buf) {
+    unsigned char* As = smem + buf * C::STAGE;
+    const uint32_t a_s = smem_addr(As), b_s = a_s + C::A_BYTES;
+    const int r0 = (s0 + s) * HBK;  // the step's first position
+    if constexpr (!CANVAS) {  // x[base(r0 + arow) + off, m0 + 8c : + 8] -> chunk c of the row
+      const int m = r0 + arow;
+      const int src = m < g.Mv ? out_base(g, m) + off[0] : -1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = (tid & 3) + 4 * j, ci = m0 + 8 * c;
+        const bool ok = src >= 0 && ci < g.Ci;
+        cp_async16(As + (c >> 3) * 8192 + sw128(arow, c & 7),
+                   ok ? x + static_cast<size_t>(src) * g.Ci + ci : x, ok);
+      }
+    }
+    if (tid == 0) {
+      const uint32_t bar = bars + 8 * buf;
+      const int na = CANVAS ? (m0 + 64 < g.Ci ? 2 : 1) : 0;  // A boxes with Ci rows inside x
+      mbar_expect_tx(bar, (na + nbox) * 8192);
+      for (int j = 0; j < na; ++j) tma_load_2d(a_s + j * 8192, &xmap, m0 + 64 * j, r0, bar);
+#pragma unroll
+      for (int u = 0; u < DW_BOXES; ++u)
+        if (u < nbox)
+          tma_load_2d(b_s + u * 8192, &gmap, CANVAS ? 0 : n0 + 64 * u, CANVAS ? r0 - off[u] : r0,
+                      bar);
+    }
+  };
+
+  float acc[DW_BN / 2];
+#pragma unroll
+  for (int i = 0; i < DW_BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < C::AHEAD; ++i) {
+    if (i < nsteps) load(i, i);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    // as in tap_conv_wgmma: step s has landed, and step s - 2's wgmma has
+    // finished in every warpgroup, so its stage takes step s + AHEAD
+    cp_async_wait<C::AHEAD - 1>();
+    mbar_wait(bars + 8 * (s % C::NS), (s / C::NS) & 1);
+    fence_proxy_async();
+    __syncthreads();
+    if (s + C::AHEAD < nsteps) load(s + C::AHEAD, (s + C::AHEAD) % C::NS);
+    cp_async_commit();
+    if (live) {
+      const uint32_t a_addr = smem_addr(smem + (s % C::NS) * C::STAGE) + wg * 8192;
+      const uint32_t b_addr = smem_addr(smem + (s % C::NS) * C::STAGE + C::A_BYTES);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HBK / 16; ++kk)  // a k16 step: 16 rows of 128 bytes, 2 KB
+        wgmma<DW_BN, 1, 1>(acc, sw128_desc(a_addr + kk * 2048, 8192, 1024),
+                           sw128_desc(b_addr + kk * 2048, 8192, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(acc);
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // the accumulator layout of tap_conv_wgmma's epilogue; column col is
+  // column col % 64 of box col / 64
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  const bool pair = g.Co <= DW_PAIR_CO;
+  float* out = ws ? ws + static_cast<size_t>(blockIdx.z) * g.ntaps * g.Ci * g.Co : dw;
+#pragma unroll
+  for (int i = 0; i < DW_BN / 2; i += 2) {
+    const int row = row0 + ((i >> 1) & 1) * 8;
+    const int col = (i >> 2) * 8 + (lane & 3) * 2;
+    const int u = col >> 6, c = col & 63;
+    int tap = tb[u], co = n0 + col;
+    if constexpr (CANVAS) {
+      if (pair && c < 32) tap = th[u];
+      co = pair ? c & 31 : c;
+    }
+    if (u < nbox && tap >= 0 && row < g.Ci && co < g.Co)
+      *reinterpret_cast<float2*>(out + (static_cast<size_t>(tap) * g.Ci + row) * g.Co + co) =
+          make_float2(acc[i], acc[i + 1]);
+  }
+}
+
+// The canvas form's B matrix gb (rows, 64) from g, in one pass: for Co <=
+// 32, rows = Mc + 1 and gb[r] = [gcan[r - 1], gcan[r]] (each padded to 32
+// channels); else rows = Mc and gb[r] = gcan[r] padded to 64 channels.
+// gcan[q] is g at the valid output position of canvas row q, zero at
+// every other row.  A thread writes 8 columns (16 bytes) of a row.
+__global__ void tap_conv_dw_operand_kernel(const __nv_bfloat16* __restrict__ g,
+                                           __nv_bfloat16* __restrict__ gb, int rows, Geo geo) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * 8) return;
+  const int r = i >> 3, c8 = (i & 7) * 8;
+  const bool pair = geo.Co <= DW_PAIR_CO;
+  const int q = pair && c8 < 32 ? r - 1 : r;  // the gcan row, and its channel:
+  const int ch = pair ? c8 & 31 : c8;
+  uint4 v = make_uint4(0, 0, 0, 0);
+  if (q >= 0 && q < geo.Mc && ch < geo.Co) {
+    const int b = q / geo.cs;
+    int rem = q - b * geo.cs;
+    const int i0 = rem / geo.st[0];
+    rem -= i0 * geo.st[0];
+    const int i1 = rem / geo.st[1], i2 = rem - i1 * geo.st[1];
+    if (i0 < geo.o[0] && i1 < geo.o[1] && i2 < geo.o[2]) {
+      const int m = b * geo.os + (i0 * geo.o[1] + i1) * geo.o[2] + i2;
+      v = *reinterpret_cast<const uint4*>(g + static_cast<size_t>(m) * geo.Co + ch);
+    }
+  }
+  *reinterpret_cast<uint4*>(gb + static_cast<size_t>(r) * 64 + c8) = v;
+}
+
+// ------------------------------------------ the split kernels' second pass
+
+__device__ __forceinline__ void store4(__nv_bfloat16* out, size_t i, float4 v) {
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out) + 2 * i;
+  o[0] = __floats2bfloat162_rn(v.x, v.y);
+  o[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+__device__ __forceinline__ void store4(float* out, size_t i, float4 v) {
+  reinterpret_cast<float4*>(out)[i] = v;
+}
+
+// out = the sum of the S f32 partials ws[0], ..., ws[S - 1], in that order
+template <typename OutT>
+__device__ __forceinline__ void split_reduce(const float4* __restrict__ ws, OutT* __restrict__ out,
+                                             int splits, size_t n4) {
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n4;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float4 v = ws[i];
@@ -793,10 +922,29 @@ __global__ void tap_conv_fwd_reduce_kernel(const float4* __restrict__ ws,
       v.z += u.z;
       v.w += u.w;
     }
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out) + 2 * i;
-    o[0] = __floats2bfloat162_rn(v.x, v.y);
-    o[1] = __floats2bfloat162_rn(v.z, v.w);
+    store4(out, i, v);
   }
+}
+
+// K3's, in x's type
+__global__ void tap_conv_fwd_reduce_kernel(const float4* __restrict__ ws,
+                                           __nv_bfloat16* __restrict__ out, int splits,
+                                           size_t n4) {
+  split_reduce(ws, out, splits, n4);
+}
+
+// K5's, in f32
+__global__ void tap_conv_dw_reduce_kernel(const float4* __restrict__ ws, float* __restrict__ out,
+                                          int splits, size_t n4) {
+  split_reduce(ws, out, splits, n4);
+}
+
+template <typename OutT>
+void launch_split_reduce(void (*kern)(const float4*, OutT*, int, size_t), const float* ws,
+                         OutT* out, int splits, size_t n, cudaStream_t st) {
+  const size_t n4 = n / 4;
+  const int blocks = static_cast<int>((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
+  kern<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(ws), out, splits, n4);
 }
 
 template <typename Kern>
@@ -828,21 +976,26 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// W as the 2-D (ntaps * Ci, Co) bf16 matrix, boxes of 64 columns x
-// box_rows rows in the 128-byte swizzle (zeros outside W)
-int w_tensor_map(CUtensorMap* map, const void* w, const Geo& g, int box_rows) {
+// a row-major (rows, cols) bf16 matrix as a TMA map: boxes of box_cols x
+// box_rows in the given swizzle, zeros outside the matrix
+int tensor_map_2d(CUtensorMap* map, const void* p, int rows, int cols, int box_cols,
+                  int box_rows, CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(g.Co),
-                              static_cast<cuuint64_t>(g.ntaps) * g.Ci};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(g.Co) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// W as the 2-D (ntaps * Ci, Co) matrix, boxes of 64 columns x box_rows
+// rows in the 128-byte swizzle
+int w_tensor_map(CUtensorMap* map, const void* w, const Geo& g, int box_rows) {
+  return tensor_map_2d(map, w, g.ntaps * g.Ci, g.Co, 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int WGM, int BN>
@@ -860,12 +1013,9 @@ int launch_fwd_wgmma(const void* x, const void* w, void* out, float* ws, int spl
   kern<<<grid, C::THREADS, C::SMEM, st>>>(static_cast<const __nv_bfloat16*>(x),
                                           static_cast<const __nv_bfloat16*>(w), wmap, o,
                                           splits > 1 ? ws : nullptr, per, g);
-  if (splits > 1) {
-    const size_t n4 = static_cast<size_t>(g.Mv) * g.Co / 4;
-    const int blocks = static_cast<int>((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
-    tap_conv_fwd_reduce_kernel<<<blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(ws), o,
-                                                       splits, n4);
-  }
+  if (splits > 1)
+    launch_split_reduce(tap_conv_fwd_reduce_kernel, ws, o, splits,
+                        static_cast<size_t>(g.Mv) * g.Co, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -886,17 +1036,73 @@ int launch_dx_wgmma(const void* gcan, const void* w, void* dx, const int* taps, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 K3 and K4 at the caller's tile (K4's tap table has a row for each
-// bm canvas rows): one of those the body is built for, or
+// bf16 K5 (b = g): groups 0 the valid-row form, else the canvas form with
+// `groups` rows of the box table `boxes` and the canvas rows in `splits`
+// groups; its workspace ws holds the B matrix (tap_conv_dw_operand_kernel)
+// and, 256 bytes aligned after it, the splits' f32 partials
+int launch_dw_wgmma(const void* x, const void* b, float* dw, const int* boxes, int groups,
+                    void* ws, int splits, const Geo& g, cudaStream_t st) {
+  using C = HCfg<DW, 2, DW_BN>;
+  const bool canvas = groups > 0;
+  const int rows = canvas ? g.Mc : g.Mv;  // the reduction's positions
+  const int steps = (rows + HBK - 1) / HBK;
+  if (canvas ? g.Co > DW_CANVAS_CO || !boxes || !ws || splits < 1 || (steps > 0 && splits > steps)
+             : splits != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0)  // no position: dW is zero
+    return static_cast<int>(
+        cudaMemsetAsync(dw, 0, sizeof(float) * g.ntaps * g.Ci * g.Co, st));
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const void* bmat = b;
+  float* part = nullptr;
+  CUtensorMap xmap = {}, gmap;
+  if (canvas) {
+    const int b_rows = g.Co <= DW_PAIR_CO ? g.Mc + 1 : g.Mc;
+    auto* gb = static_cast<__nv_bfloat16*>(ws);
+    tap_conv_dw_operand_kernel<<<(b_rows * 8 + 255) / 256, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(b), gb, b_rows, g);
+    bmat = gb;
+    part = reinterpret_cast<float*>(static_cast<char*>(ws) +
+                                    (static_cast<size_t>(b_rows) * 128 + 255) / 256 * 256);
+    if (const int err = tensor_map_2d(&xmap, x, g.Mc, g.Ci, 64, HBK, CU_TENSOR_MAP_SWIZZLE_128B))
+      return err;
+    if (const int err =
+            tensor_map_2d(&gmap, bmat, b_rows, 64, 64, HBK, CU_TENSOR_MAP_SWIZZLE_128B))
+      return err;
+  } else if (const int err =
+                 tensor_map_2d(&gmap, b, g.Mv, g.Co, 64, HBK, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return err;
+  }
+  auto kern = canvas ? tap_conv_dw_wgmma_kernel<true> : tap_conv_dw_wgmma_kernel<false>;
+  if (const int err = set_smem(kern, C::SMEM)) return err;
+  const int per = (steps + splits - 1) / splits;
+  const int ci_tiles = (g.Ci + C::BM - 1) / C::BM;
+  const dim3 grid = canvas ? dim3(ci_tiles, groups, splits)
+                           : dim3(ci_tiles, (g.Co + DW_BN - 1) / DW_BN, g.ntaps);
+  kern<<<grid, C::THREADS, C::SMEM, st>>>(xb, xmap, gmap, dw, splits > 1 ? part : nullptr,
+                                          boxes, per, g);
+  if (splits > 1)
+    launch_split_reduce(tap_conv_dw_reduce_kernel, part, dw, splits,
+                        static_cast<size_t>(g.ntaps) * g.Ci * g.Co, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 K3, K4 and K5 at the caller's tile (K4's tap table has a row for
+// each bm canvas rows): one of those the bodies are built for, or
 // cudaErrorInvalidValue
 int launch_wgmma(int mode, int bm, int bn, int bk, const void* a, const void* b, void* out,
-                 const int* taps, int tap_stride, float* ws, int splits, const Geo& g,
-                 cudaStream_t st) {
+                 const int* taps, int tap_stride, void* ws, int splits, int groups,
+                 const Geo& g, cudaStream_t st) {
+  if (bk == HBK && mode == DW && bm == 128 && bn == DW_BN && (!groups || tap_stride == DW_TABLE))
+    return g.Ci == 0 || g.Co == 0
+               ? 0
+               : launch_dw_wgmma(a, b, static_cast<float*>(out), taps, groups, ws, splits, g, st);
   const bool empty = mode == FWD ? g.Mv == 0 || g.Co == 0 : g.Mc == 0 || g.Ci == 0;
   if (bk == HBK && mode == FWD) {
-    if (bm == 64 && bn == 64) return empty ? 0 : launch_fwd_wgmma<1, 64>(a, b, out, ws, splits, g, st);
+    float* part = static_cast<float*>(ws);
+    if (bm == 64 && bn == 64) return empty ? 0 : launch_fwd_wgmma<1, 64>(a, b, out, part, splits, g, st);
     if (bm == 128 && bn == 256)
-      return empty ? 0 : launch_fwd_wgmma<2, 256>(a, b, out, ws, splits, g, st);
+      return empty ? 0 : launch_fwd_wgmma<2, 256>(a, b, out, part, splits, g, st);
   }
   if (bk == HBK && mode == DX && bm == 64 * DX_WGM) {
     if (bn == 64) return empty ? 0 : launch_dx_wgmma<64>(a, b, out, taps, tap_stride, g, st);
@@ -919,15 +1125,23 @@ int launch_wgmma(int mode, int bm, int bn, int bk, const void* a, const void* b,
 // one the kernel is not built for is refused with cudaErrorInvalidValue.
 // bf16 K4 also takes `taps`, int32 (ceil(B * prod(s) / bm), tap_stride):
 // row i = [count, tap, ...], the taps of canvas rows [bm i, bm i + bm)
-// (tapconv.dx_tap_table); bf16 K3 with splits > 1 takes `ws`, f32
+// (tapconv.dx_tap_table).  bf16 K3 with splits > 1 takes `ws`, f32
 // (splits, B * prod(o), Co), and splits no larger than its steps
-// (ceil(prod(k) * Ci / bk)) with none left empty.  Other modes and types
-// ignore taps, ws and splits.  Launches on `stream`, does not
+// (ceil(prod(k) * Ci / bk)).  bf16 K5 follows tapconv.dw_plan: groups 0
+// is the valid-row form (splits 1); groups > 0 the canvas form (Co <= 64),
+// whose `taps` is the box table, int32 (groups, tap_stride = 9), row i =
+// [count <= 4, base tap, second tap or -1, ...], with splits no larger
+// than its steps (ceil(B * prod(s) / bk)) and the workspace `ws`: its B
+// matrix, bf16 (B * prod(s) + (Co <= 32), 64), then 256-byte aligned the
+// f32 partials (splits, *k, Ci, Co) when splits > 1
+// (tapconv.dw_workspace_bytes); split group z takes steps [z * per, (z +
+// 1) * per) with per = ceil(steps / splits).  Other modes and types
+// ignore taps, ws, splits and groups.  Launches on `stream`, does not
 // synchronise, and returns the CUDA error (0 on success).
 extern "C" int picad_tap_conv(int mode, const void* a, const void* b, void* out, int B,
                               int Ci, int Co, int s0, int s1, int s2, int k0, int k1, int k2,
                               int is_bf16, int bm, int bn, int bk, const int* taps,
-                              int tap_stride, void* ws, int splits, void* stream) {
+                              int tap_stride, void* ws, int splits, int groups, void* stream) {
   Geo g;
   g.B = B;
   g.Ci = Ci;
@@ -947,8 +1161,6 @@ extern "C" int picad_tap_conv(int mode, const void* a, const void* b, void* out,
   g.Mv = B * g.os;
   g.Mc = B * g.cs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) return launch_tile<float>(mode, bm, bn, bk, a, b, out, g, st);
-  if (mode == DW) return launch_tile<__nv_bfloat16>(mode, bm, bn, bk, a, b, out, g, st);
-  return launch_wgmma(mode, bm, bn, bk, a, b, out, taps, tap_stride, static_cast<float*>(ws),
-                      splits, g, st);
+  if (!is_bf16) return launch_f32(mode, bm, bn, bk, a, b, out, g, st);
+  return launch_wgmma(mode, bm, bn, bk, a, b, out, taps, tap_stride, ws, splits, groups, g, st);
 }

@@ -24,11 +24,16 @@ It is a `torch.autograd.Function`, differentiable in x and w:
 
 The kernels' tiles are chosen here (`kernel_tile`) and passed to the
 kernel, which refuses a tile it is not built for.  In bf16 on the card,
-K3 and K4 run csrc/tap_conv.cu's wgmma body, whose index plans are made
-here at those tiles: `fwd_split_plan` splits K3's reduction into groups
-whose f32 partials a second pass sums in order (so that the blocks fill
-the card's SMs), and `dx_tap_table` lists, for each row tile of K4's
-canvas rows, the taps whose gcan rows can be non-zero there.
+K3, K4 and K5 run csrc/tap_conv.cu's wgmma bodies, whose index plans are
+made here at those tiles: `fwd_split_plan` splits K3's reduction into
+groups whose f32 partials a second pass sums in order (so that the
+blocks fill the card's SMs), `dx_tap_table` lists, for each row tile of
+K4's canvas rows, the taps whose gcan rows can be non-zero there, and
+`dw_plan` picks K5's form (the valid-row form for a wide Co; for a
+narrow one the canvas form, dW[t] = sum_p x[p] (x) gcan[p - off(t)], whose
+x tile serves a group of taps), its tap groups and its split.
+`work_ratio` reads the multiply-adds each plan issues over the useful
+ones.
 
 Kernels are built with nvcc at first use and bound with ctypes.  On a
 CUDA tensor a wrapper launches its kernel or raises: there is no switch,
@@ -43,8 +48,10 @@ calls them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,10 +60,14 @@ import torch.nn.functional as F
 # csrc/tap_conv.cu's modes
 _FWD, _DX, _DW = 0, 1, 2
 _MAX_RANK = 3  # spatial dims the kernel unravels
-_BM = 128  # the row tile of the f32 kernels and of K5 (rows in grid.y)
+_BM = 128  # the row tile of the f32 kernels (rows in grid.y)
 _STEP = 64  # the wgmma body's reduction step: (tap, channel) pairs
 _DX_BM = 192  # bf16 K4's row tile (three warpgroups): a tap table row each
 _SPLIT_WAVES = 8  # narrow K3: blocks an SM
+_MAX_SPLIT = 8  # split groups of a wide (one block an SM) tile
+_DW_CANVAS_CO = 64  # bf16 K5 takes the canvas form up to this Co
+_DW_PAIR_CO = 32  # ... and puts two taps in a B box up to this Co
+_DW_BOXES = 4  # ... B boxes (64 columns each) a block
 _INT_MAX = 2**31 - 1
 
 
@@ -133,16 +144,25 @@ def kernel_tile(mode: int, dtype, ci: int, co: int) -> tuple[int, int, int]:
     outputs (rows x columns), reduction steps of BK.  bf16 K3 and K4 (the
     wgmma body, steps of _STEP): K3 128 x 256, or 64 x 64 when Co <= 64
     (three blocks an SM); K4 _DX_BM rows x an N tile that divides Ci where
-    one can (832 = 4 x 208), 64 when Ci <= 64, else 256.  The f32 kernels
-    and bf16 K5: 128 x 128, or 128 x 32 for at most 32 output columns, in
-    steps of 16 (f32) or 32 (bf16)."""
-    bf16 = dtype == torch.bfloat16
-    if bf16 and mode == _FWD:
-        return (64, 64, _STEP) if co <= 64 else (128, 256, _STEP)
-    if bf16 and mode == _DX:
-        return _DX_BM, (64 if ci <= 64 else 208 if ci % 208 == 0 else 256), _STEP
+    one can (832 = 4 x 208), 64 when Ci <= 64, else 256; K5 128 Ci rows x
+    256 columns (Co, or a tap group's columns in the canvas form).  The
+    f32 kernels: 128 x 128, or 128 x 32 for at most 32 output columns, in
+    steps of 16."""
+    if dtype == torch.bfloat16:
+        if mode == _FWD:
+            return (64, 64, _STEP) if co <= 64 else (128, 256, _STEP)
+        if mode == _DX:
+            return _DX_BM, (64 if ci <= 64 else 208 if ci % 208 == 0 else 256), _STEP
+        return 128, 256, _STEP
     n = ci if mode == _DX else co
-    return _BM, (128 if n > 32 else 32), (32 if bf16 else 16)
+    return _BM, (128 if n > 32 else 32), 16
+
+
+def _fewest_waves(tiles: int, sms: int) -> int:
+    """The split count S <= _MAX_SPLIT whose `tiles` x S blocks (one
+    block an SM, each 1 / S of a tile's work) take the least time in waves
+    on `sms` SMs; the smallest on a tie."""
+    return min(range(1, _MAX_SPLIT + 1), key=lambda k: (-(-tiles * k // sms) / k, k))
 
 
 def fwd_split_plan(rows: int, ci: int, co: int, ntaps: int, sms: int) -> tuple[int, int]:
@@ -158,12 +178,117 @@ def fwd_split_plan(rows: int, ci: int, co: int, ntaps: int, sms: int) -> tuple[i
     if steps == 0:
         return 1, 0
     tiles = -(-rows // bm) * -(-co // bn)
-    if co <= 64:
-        s = -(-_SPLIT_WAVES * sms // tiles)
-    else:
-        s = min(range(1, 9), key=lambda k: (-(-tiles * k // sms) / k, k))
+    s = -(-_SPLIT_WAVES * sms // tiles) if co <= 64 else _fewest_waves(tiles, sms)
     per = -(-steps // min(steps, s))
     return -(-steps // per), per
+
+
+class DwPlan(NamedTuple):
+    """bf16 K5's launch plan (`dw_plan`)."""
+
+    form: str  # "rows": the valid-row form; "canvas": the canvas form
+    tile: tuple[int, int, int]  # kernel_tile's (BM, BN, BK)
+    # each block column's taps: the valid-row form ((t,),) for every tap;
+    # the canvas form up to _DW_BOXES B boxes of one tap, or of two
+    # neighbours in the last kernel dim (t, t + 1) for Co <= _DW_PAIR_CO
+    groups: tuple[tuple[tuple[int, ...], ...], ...]
+    splits: int  # S: the reduction's steps in S groups, summed in group order
+    rows_per_split: int  # positions a split group sums (steps x BK)
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def dw_plan(batch: int, sp: tuple, kd: tuple, ci: int, co: int, sms: int,
+            form: str | None = None) -> DwPlan:
+    """bf16 K5's plan at its tile, for `sms` SMs (`form` defaults to
+    "canvas" up to Co _DW_CANVAS_CO, else "rows").  The valid-row form:
+    one block per (Ci tile, Co tile, tap), each summing every valid output
+    position, no split (PrimaryCaps' pose conv at the train shape: 7 x 2
+    x 81 = 1134 blocks).  The canvas form (Co <= _DW_CANVAS_CO): a B box
+    is 64 columns, one tap, or for Co <= _DW_PAIR_CO two taps whose row
+    shifts differ by one (t and t + 1 in one row of the last kernel dim; 5
+    boxes a row of 9); up to _DW_BOXES consecutive boxes share a block and
+    its x tile; the canvas rows split into S groups, S the count with the
+    fewest waves of Ci tiles x tap groups x S blocks (one an SM), group z
+    taking steps [z * per, (z + 1) * per) with per = ceil(steps / S), as
+    the kernel computes it (the act conv at the train shape on 132 SMs: 45
+    boxes in 12 groups, 7 x 12 tiles x S 3).  Cached: the wrappers ask for
+    it on every launch."""
+    tile = bm, bn, bk = kernel_tile(_DW, torch.bfloat16, ci, co)
+    ntaps = math.prod(kd)
+    ci_tiles = -(-ci // bm)
+    form = form or ("canvas" if co <= _DW_CANVAS_CO else "rows")
+    if form == "rows":
+        steps = -(-batch * math.prod(d - k + 1 for d, k in zip(sp, kd)) // bk)
+        return DwPlan(form, tile, tuple(((t,),) for t in range(ntaps)), 1, steps * bk,
+                      ci_tiles * -(-co // bn) * ntaps)
+    if form != "canvas" or co > _DW_CANVAS_CO:
+        raise ValueError(f"dw_plan: no {form!r} form at Co {co}")
+    last = kd[-1]
+    if co <= _DW_PAIR_CO:
+        boxes = [(t, t + 1) if t % last + 1 < last else (t,)
+                 for t in range(ntaps) if t % last % 2 == 0]
+    else:
+        boxes = [(t,) for t in range(ntaps)]
+    groups = tuple(tuple(boxes[i:i + _DW_BOXES]) for i in range(0, len(boxes), _DW_BOXES))
+    steps = -(-batch * math.prod(sp) // bk)
+    tiles = ci_tiles * len(groups)
+    splits = 1
+    if steps:
+        per = -(-steps // min(_fewest_waves(tiles, sms), steps))
+        splits = -(-steps // per)
+    per = -(-steps // splits)
+    return DwPlan(form, tile, groups, splits, per * bk, tiles * splits)
+
+
+def dw_box_table(plan: DwPlan) -> np.ndarray:
+    """The canvas form's box table for csrc/tap_conv.cu: int32 (groups, 1 +
+    2 * _DW_BOXES), row i = [count, base tap, second tap or -1, ...] for
+    the boxes of group i (-1 past the count)."""
+    table = np.full((len(plan.groups), 1 + 2 * _DW_BOXES), -1, np.int32)
+    for i, group in enumerate(plan.groups):
+        table[i, 0] = len(group)
+        for u, box in enumerate(group):
+            table[i, 1 + 2 * u:3 + 2 * u] = (box[0], box[1] if len(box) > 1 else -1)
+    return table
+
+
+def dw_workspace_bytes(plan: DwPlan, canvas_rows: int, ci: int, co: int, ntaps: int) -> int:
+    """The canvas form's workspace: its B matrix, bf16 (canvas rows + 1 for
+    Co <= _DW_PAIR_CO, 64), which csrc/tap_conv.cu lays out from g (for
+    two taps a box, row r = [gcan[r - 1], gcan[r]], each padded to 32
+    channels), then 256-byte aligned the splits' f32 partials (S, taps,
+    Ci, Co) when S > 1."""
+    b_bytes = (canvas_rows + (co <= _DW_PAIR_CO)) * 64 * 2
+    parts = plan.splits * ntaps * ci * co * 4 if plan.splits > 1 else 0
+    return -(-b_bytes // 256) * 256 + parts
+
+
+def work_ratio(mode: int, batch: int, sp, kd, ci: int, co: int, sms: int) -> float:
+    """Multiply-adds the bf16 kernel issues over the useful ones, at its
+    tile and plan: K3 pads rows, columns and reduction steps to the tile;
+    K4 runs each row tile's listed taps (dx_tap_table); K5 pads Ci to a
+    warpgroup's 64 rows (one past Ci issues nothing), the columns to the
+    tile (in the canvas form every tap group takes a whole tile) and the
+    positions to steps, and the canvas form sums every canvas row
+    (dw_plan)."""
+    bm, bn, bk = kernel_tile(mode, torch.bfloat16, ci, co)
+    od = tuple(d - k + 1 for d, k in zip(sp, kd))
+    rows, ntaps = batch * math.prod(od), math.prod(kd)
+    useful = rows * ntaps * ci * co
+
+    def pad(n, m):
+        return -(-n // m) * m
+
+    if mode == _FWD:
+        return pad(rows, bm) * pad(co, bn) * pad(ntaps * ci, bk) / useful
+    if mode == _DX:
+        table = dx_tap_table(batch, sp, kd, bm)
+        return bm * sum(pad(int(n) * co, bk) for n in table[:, 0]) * pad(ci, bn) / useful
+    plan = dw_plan(batch, sp, kd, ci, co, sms)
+    if plan.form == "rows":
+        return pad(ci, 64) * pad(co, bn) * ntaps * pad(rows, bk) / useful
+    return pad(ci, 64) * len(plan.groups) * bn * pad(batch * math.prod(sp), bk) / useful
 
 
 def dx_tap_table(batch: int, sp, kd, bm: int) -> np.ndarray:
@@ -191,14 +316,15 @@ def dx_tap_table(batch: int, sp, kd, bm: int) -> np.ndarray:
     return table
 
 
-_DX_TABLES: dict = {}  # (batch, sp, kd, bm, device) -> dx_tap_table on that device
+_TABLES: dict = {}  # (kind, geometry..., device) -> an index table on that device
 
 
-def _dx_taps_on(device, batch, sp, kd, bm) -> torch.Tensor:
-    key = (batch, tuple(sp), tuple(kd), bm, str(device))
-    t = _DX_TABLES.get(key)
+def _table_on(device, key: tuple, make) -> torch.Tensor:
+    """The int32 table make() returns, copied to `device` once per key."""
+    key += (str(device),)
+    t = _TABLES.get(key)
     if t is None:
-        t = _DX_TABLES[key] = torch.from_numpy(dx_tap_table(batch, sp, kd, bm)).to(device)
+        t = _TABLES[key] = torch.from_numpy(make()).to(device)
     return t
 
 
@@ -244,7 +370,7 @@ def _kernel_fn():
     fn = _build.load("tap_conv").picad_tap_conv
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -266,9 +392,10 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
 
 def _launch(mode: int, name: str, a, b, out, x_shape, kshape) -> None:
     """Check what csrc/tap_conv.cu cannot take, pick its tile, make the
-    index plans of its bf16 K3 and K4 at that tile (K3's f32 partials
-    workspace, K4's tap table, cached per geometry and device), then
-    launch it on the current stream; raises if the launch fails."""
+    index plans of its bf16 kernels at that tile (K3's f32 partials, K5's
+    canvas-form workspace, and K4's tap and K5's box tables, cached per
+    geometry and device), then launch it on the current stream; raises if
+    the launch fails."""
     sp, kd, od = _geometry(x_shape, kshape)
     Ci, Co = kshape[-2], kshape[-1]
     if len(sp) > _MAX_RANK:
@@ -280,32 +407,48 @@ def _launch(mode: int, name: str, a, b, out, x_shape, kshape) -> None:
     ntaps = math.prod(kd)
     if canvas * max(Ci, Co) > _INT_MAX or ntaps * Ci * Co > _INT_MAX:
         raise ValueError(f"{name} kernel: the operands exceed int32 indexing")
-    wgmma = a.dtype == torch.bfloat16 and mode != _DW  # rows in grid.x, no limit
+    wgmma = a.dtype == torch.bfloat16  # output rows in grid.x, no limit
     bm, bn, bk = kernel_tile(mode, a.dtype, Ci, Co)
     rows = {_FWD: B * math.prod(od), _DX: canvas, _DW: Ci}[mode]
     if (not wgmma and -(-rows // bm) > 65535) or ntaps > 65535:
         raise ValueError(f"{name} kernel: {rows} rows or {ntaps} taps exceed the grid")
-    taps, ws, splits = None, None, 1
+    taps, ws, splits, groups = None, None, 1, 0
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count if wgmma else 0
     if wgmma and mode == _FWD:
-        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
         splits, _ = fwd_split_plan(rows, Ci, Co, ntaps, sms)
-        if splits > 1:
-            if splits * rows * Co > _INT_MAX:
-                raise ValueError(f"{name} kernel: the split workspace exceeds int32 indexing")
-            ws = torch.empty((splits, rows, Co), dtype=torch.float32, device=a.device)
     elif wgmma and mode == _DX:
-        taps = _dx_taps_on(a.device, B, sp, kd, bm)
+        taps = _table_on(a.device, ("dx", B, sp, kd, bm), lambda: dx_tap_table(B, sp, kd, bm))
+    elif wgmma:
+        plan = dw_plan(B, sp, kd, Ci, Co, sms)
+        if plan.form == "canvas":
+            taps = _table_on(a.device, ("dw", plan.groups), lambda: dw_box_table(plan))
+            groups, splits = len(plan.groups), plan.splits
+    if splits > 1 and splits * (rows if mode == _FWD else ntaps * Ci) * Co > _INT_MAX:
+        raise ValueError(f"{name} kernel: the split workspace exceeds int32 indexing")
+    if mode == _FWD and splits > 1:
+        ws = torch.empty((splits, rows, Co), dtype=torch.float32, device=a.device)
+    elif groups:  # K5's canvas form: its B matrix and partials
+        ws = torch.empty(dw_workspace_bytes(plan, canvas, Ci, Co, ntaps), dtype=torch.uint8,
+                         device=a.device)
     pad = (1,) * (_MAX_RANK - len(sp))  # leading dims of size 1
     with torch.cuda.device(a.device):
         err = _kernel_fn()(
             mode, a.data_ptr(), b.data_ptr(), out.data_ptr(),
             B, Ci, Co, *(pad + sp), *(pad + kd), int(a.dtype == torch.bfloat16), bm, bn, bk,
-            None if taps is None else taps.data_ptr(), 1 + ntaps,
-            None if ws is None else ws.data_ptr(), splits,
+            None if taps is None else taps.data_ptr(), 0 if taps is None else taps.shape[1],
+            None if ws is None else ws.data_ptr(), splits, groups,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _gcan(g: torch.Tensor, sp, od) -> torch.Tensor:
+    """g (B, *od, Co) zero-embedded in the canvas (B, *sp, Co)
+    (tapconv.py:400-403); rows before the canvas read as zero inside the
+    kernels."""
+    pads = [p for d, o in zip(reversed(sp), reversed(od)) for p in (0, d - o)]
+    return F.pad(g, [0, 0] + pads)
 
 
 def tap_conv_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -334,12 +477,7 @@ def tap_conv_dx(g: torch.Tensor, w: torch.Tensor, x_shape) -> torch.Tensor:
     if g.device.type == "cpu" and w.device.type == "cpu":
         return tap_conv_dx_plain(g, w, x_shape)
     wq = w.to(g.dtype)
-    # gcan: g zero-embedded in the canvas (tapconv.py:400-403); rows before
-    # the canvas read as zero inside the kernel
-    pads = []
-    for d, o in zip(reversed(sp), reversed(od)):
-        pads += [0, d - o]
-    gcan = F.pad(g, [0, 0] + pads)
+    gcan = _gcan(g, sp, od)
     _check_cuda("tap_conv_dx", gcan, wq)
     dx = torch.empty((x_shape[0], *sp, w.shape[-2]), dtype=g.dtype, device=g.device)
     _launch(_DX, "tap_conv_dx", gcan, wq, dx, tuple(x_shape), w.shape)

@@ -250,6 +250,22 @@ DX_TABLE_CASES = [
     ((2, 20, 18, 32), (5, 3, 32, 64)),  # kh != kw, Co % 64 == 0 (W by TMA): 4 tiles
     ((2, 9, 10, 96), (3, 3, 96, 16)),  # Ci 96: K4's 256-wide N tile
 ]
+# bf16 K5's two forms (tapconv.dw_plan): the canvas form for Co <= 64 (B
+# boxes of two taps up to Co 32, else one; tap groups; split), the
+# valid-row form above; ragged Ci tiles, and reductions (valid or canvas
+# rows) that are not a multiple of the 64-row step
+DW_CASES = [
+    ((2, 30, 16), (7, 16, 8)),  # rank 1, Co 8: two taps a box, 24 of each's 32 columns past Co
+    ((1, 4, 8, 9, 8), (3, 3, 3, 8, 40)),  # rank 3, Co 40: a tap a box, 24 columns past Co
+    ((3, 13, 11, 72), (9, 9, 72, 40)),  # Ci 72 (8 rows in the second warpgroup), 429 canvas rows
+    ((2, 10, 9, 24), (3, 5, 24, 32)),  # Co 32: 3 boxes a row of 5 taps, groups of 4, 4, 1
+    ((2, 9, 10, 96), (3, 3, 96, 64)),  # Co 64, the canvas form's widest: a tap a box
+    ((3, 28, 28, 832), (9, 9, 832, 32)),  # the act conv at B 3: 2352 canvas rows, 45 boxes
+    ((2, 13, 12, 72), (5, 5, 72, 512)),  # valid-row form, Ci 72, 144 valid rows
+    ((2, 71, 64), (7, 64, 512)),  # valid-row form, rank 1: 130 valid rows
+    ((1, 28, 28, 832), (9, 9, 832, 512)),  # the pose conv at B 1: 400 valid rows, Ci tile 7 half full
+    ((2, 12, 12, 16), (3, 3, 16, 136)),  # valid-row form, Co 136: one 256-wide tile, 2 boxes past Co
+]
 
 
 def _tap_inputs(card, x_shape, k_shape, dtype, seed=0):
@@ -302,16 +318,34 @@ def test_tap_conv_kernels_on_the_split_and_table_paths(card, no_tf32, x_shape, k
     _check_tap_kernels(card, x_shape, k_shape, dtype)
 
 
+@pytest.mark.parametrize("x_shape,k_shape", DW_CASES)
+def test_tap_conv_dw_kernel_matches_plain(card, x_shape, k_shape):
+    """bf16 K5 in the form dw_plan gives it, against its plain version."""
+    x, _, g = _tap_inputs(card, x_shape, k_shape, torch.bfloat16, seed=11)
+    co = k_shape[-1]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = tapconv.dw_plan(x_shape[0], x_shape[1:-1], k_shape[:-2], k_shape[-2], co, sms)
+    assert plan.form == ("canvas" if co <= 64 else "rows")
+    before = tapconv.tap_conv_dw.launches_by_co.get(co, 0)
+    dw = tapconv.tap_conv_dw(x, g, k_shape)
+    torch.cuda.synchronize()
+    assert tapconv.tap_conv_dw.launches_by_co[co] == before + 1
+    assert_close_to_plain(dw, tapconv.tap_conv_dw_plain(x, g, k_shape), f"K5 dW ({plan.form})")
+
+
 @pytest.mark.parametrize("co", [32, 512])
 def test_tap_conv_bf16_kernels_are_deterministic(card, co):
-    """Two launches of K3 (the split path at Co 32) and of K4 (the tap
-    table; W by TMA at Co 512) give the same bits: fixed summation order,
-    no atomics."""
+    """Two launches of K3 (the split path at Co 32), of K4 (the tap table;
+    W by TMA at Co 512) and of K5 (the canvas form's split at Co 32, the
+    valid-row form at 512) give the same bits: fixed summation order, no
+    atomics."""
     x, w, g = _tap_inputs(card, (16, 28, 28, 832), (9, 9, 832, co), torch.bfloat16, seed=7)
-    runs = [(tapconv.tap_conv_fwd(x, w), tapconv.tap_conv_dx(g, w, x.shape)) for _ in range(2)]
+    runs = [(tapconv.tap_conv_fwd(x, w), tapconv.tap_conv_dx(g, w, x.shape),
+             tapconv.tap_conv_dw(x, g, w.shape)) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(runs[0][0], runs[1][0]), "K3"
     assert torch.equal(runs[0][1], runs[1][1]), "K4"
+    assert torch.equal(runs[0][2], runs[1][2]), "K5"
 
 
 def _nan_guarded(t: torch.Tensor, guard: int = 4096) -> torch.Tensor:
@@ -324,14 +358,15 @@ def _nan_guarded(t: torch.Tensor, guard: int = 4096) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("x_shape,k_shape",
-                         [TAP_CASES[1], TAP_CASES[2], SPLIT_CASES[2]] + DX_TABLE_CASES)
+@pytest.mark.parametrize("x_shape,k_shape", [TAP_CASES[1], TAP_CASES[2], SPLIT_CASES[2]]
+                         + DX_TABLE_CASES + [DW_CASES[2], DW_CASES[6]])
 def test_tap_conv_kernels_read_nothing_outside_their_operands(card, no_tf32, x_shape,
                                                               k_shape, dtype):
     """Ragged canvases, every operand between NaN guards (gcan too, through
     the launch helper the K4 wrapper uses): the rows before and past the
-    canvas must read as zeros inside the kernels, never from memory.  In
-    bf16 K3 takes its split path and K4 its tap table (W by TMA at Co 64)."""
+    canvas must read as zeros inside the kernels, never from memory.
+    In bf16 K3 takes its split path, K4 its tap table (W by TMA at Co 64)
+    and K5 the form dw_plan gives it."""
     x, w, g = _tap_inputs(card, x_shape, k_shape, dtype, seed=3)
     xg, wg, gg = _nan_guarded(x), _nan_guarded(w), _nan_guarded(g)
     out = tapconv.tap_conv_fwd(xg, wg)
@@ -365,18 +400,20 @@ def test_tap_conv_kernels_refuse_what_they_cannot_take(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["fwd", "dx"])
+@pytest.mark.parametrize("mode", ["fwd", "dx", "dw"])
 def test_tap_conv_kernel_refuses_a_tile_it_is_not_built_for(card, monkeypatch, mode, dtype):
     """The wrapper's tile reaches the kernel, which launches nothing at a
     tile it is not built for (64 x 128; for bf16 K4 that is a tap table
-    of one row per 64 canvas rows, which the 192-row body would misread)."""
+    of one row per 64 canvas rows, which the 192-row body would misread;
+    for bf16 K5 a plan of groups of four taps at that width)."""
     x, w, g = _tap_inputs(card, (2, 12, 12, 16), (9, 9, 16, 8), dtype)
     tile = tapconv.kernel_tile
     monkeypatch.setattr(tapconv, "kernel_tile", lambda *a: (64, 128, tile(*a)[2]))
-    fn = tapconv.tap_conv_fwd if mode == "fwd" else tapconv.tap_conv_dx
+    fn = {"fwd": tapconv.tap_conv_fwd, "dx": tapconv.tap_conv_dx, "dw": tapconv.tap_conv_dw}[mode]
+    args = {"fwd": (x, w), "dx": (g, w, x.shape), "dw": (x, g, w.shape)}[mode]
     before = fn.launches
     with pytest.raises(RuntimeError, match="launch failed"):
-        fn(x, w) if mode == "fwd" else fn(g, w, x.shape)
+        fn(*args)
     assert fn.launches == before
 
 

@@ -11,7 +11,10 @@ The bf16 kernels' index plans are replayed in plain torch, f32, and held
 to the plain versions within 1e-6 * max|plain| (the same products
 summed in another order): K4 tile by tile over `dx_tap_table`'s taps
 only (and the table checked minimal and complete by flat indices), K3 as
-`fwd_split_plan`'s partial sums added in group order.
+`fwd_split_plan`'s partial sums added in group order, K5 as `dw_plan`
+gives it: the valid-row form per Ci tile, the canvas form per tap group
+and split from the B matrix the kernel reads (`canvas_operand`, two
+taps a box), the splits' partials added in order.
 
 Tolerances:
 - f32: values within 1e-5, dx within 1e-4, dW within 1e-3 (rtol 1e-4),
@@ -313,8 +316,8 @@ def test_split_plan_at_primary_caps_shapes():
     (torch.bfloat16, ttap._FWD, 32, (64, 64, 64)),  # K3 act: one warpgroup, split
     (torch.bfloat16, ttap._DX, 512, (192, 208, 64)),  # K4: N 208 divides Ci 832
     (torch.bfloat16, ttap._DX, 32, (192, 208, 64)),
-    (torch.bfloat16, ttap._DW, 512, (128, 128, 32)),  # K5: the wmma body
-    (torch.bfloat16, ttap._DW, 32, (128, 32, 32)),
+    (torch.bfloat16, ttap._DW, 512, (128, 256, 64)),  # K5: wgmma, the valid-row form
+    (torch.bfloat16, ttap._DW, 32, (128, 256, 64)),  # ... the canvas form
     (torch.float32, ttap._FWD, 32, (128, 32, 16)),  # f32: the FP32-core body
     (torch.float32, ttap._DX, 512, (128, 128, 16)),
 ])
@@ -322,3 +325,141 @@ def test_kernel_tiles_at_primary_caps_shapes(dtype, mode, co, tile):
     """The tiles the wrapper gives csrc/tap_conv.cu at PrimaryCaps' Ci 832
     (the kernel is built for these and refuses others)."""
     assert ttap.kernel_tile(mode, dtype, 832, co) == tile
+
+
+# K5's plans: PLAN_CASES in each form the kernel takes (the canvas form up
+# to Co 64), plus a Co of 40 (the canvas form's one tap a box)
+DW_PLAN_CASES = [(x, k, form) for x, k in PLAN_CASES + [((2, 9, 10, 16), (3, 3, 16, 40))]
+                 for form in ("rows", "canvas") if form == "rows" or k[-1] <= 64]
+
+
+def _dw_plan_of(x_shape, k_shape, form):
+    return ttap.dw_plan(x_shape[0], x_shape[1:-1], k_shape[:-2], k_shape[-2], k_shape[-1],
+                        H100_SMS, form)
+
+
+def canvas_operand(gcan, co):
+    """The B matrix csrc/tap_conv.cu lays out for K5's canvas form
+    (tapconv.dw_workspace_bytes), 64 columns a row: for Co <= 32 row r =
+    [gcan[r - 1], gcan[r]], each padded to 32 channels (zeros before and
+    past the canvas), so that a box row at r = p - off(t) holds tap t + 1's
+    row in columns 0-31 and tap t's in 32-63; else gcan padded to 64
+    channels."""
+    gc = gcan.reshape(-1, co)
+    if co > 32:
+        return torch.nn.functional.pad(gc, (0, 64 - co))
+    gc = torch.nn.functional.pad(gc, (0, 32 - co))
+    return torch.cat([torch.nn.functional.pad(gc, (0, 0, 1, 0)),
+                      torch.nn.functional.pad(gc, (0, 0, 0, 1))], 1)
+
+
+def replay_dw_plan(x, g, k_shape, plan):
+    """K5 as the kernel runs it (f32).  The valid-row form: each Ci tile
+    of every tap's dW over the valid output positions.  The canvas form:
+    for each split of the canvas rows (plan.rows_per_split each) and each
+    tap group, box by box from the B matrix the kernel reads (for two taps
+    (t, t + 1), rows p - off(t): tap t + 1 in columns 0-31, tap t in
+    32-63), the splits' partials summed in order."""
+    sp, kd = tuple(x.shape[1:-1]), tuple(k_shape[:-2])
+    _, _, od = ttap._geometry(x.shape, k_shape)
+    Ci, Co = k_shape[-2], k_shape[-1]
+    bm = plan.tile[0]
+    if plan.form == "rows":
+        dw = torch.zeros((len(plan.groups), Ci, Co))
+        gm = g.reshape(-1, Co)
+        for ((t,),), (_, win) in zip(plan.groups, ttap._taps(kd, od)):
+            for c0 in range(0, Ci, bm):
+                dw[t, c0:c0 + bm] = x[win][..., c0:c0 + bm].reshape(-1, min(bm, Ci - c0)).T @ gm
+        return dw.reshape(*kd, Ci, Co)
+    xc = x.reshape(-1, Ci)
+    bmat = canvas_operand(ttap._gcan(g, sp, od), Co)
+    off = _flat_offsets(sp, kd)
+    out = None
+    for z in range(plan.splits):
+        p = torch.arange(z * plan.rows_per_split, min((z + 1) * plan.rows_per_split, len(xc)))
+        assert len(p), "an empty split"
+        part = torch.zeros((len(off), Ci, Co))
+        for group in plan.groups:
+            for box in group:
+                r = p - off[box[0]]
+                rows = torch.where(((r >= 0) & (r < len(bmat)))[:, None],
+                                   bmat[r.clamp(0, len(bmat) - 1)], 0.0)
+                cols = [32, 0] if len(box) == 2 else [32 if Co <= 32 else 0]
+                for t, c in zip(box, cols):
+                    part[t] += xc[p].T @ rows[:, c:c + Co]
+        out = part if out is None else out + part
+    return out.reshape(*kd, Ci, Co)
+
+
+@pytest.mark.parametrize("x_shape,k_shape,form", DW_PLAN_CASES)
+def test_dw_plan_replay_matches_plain(x_shape, k_shape, form):
+    x, _, _ = _plan_inputs(x_shape, k_shape)
+    g = _plan_inputs(x_shape, k_shape, seed=6)[2]
+    plan = _dw_plan_of(x_shape, k_shape, form)
+    assert plan.form == form
+    _assert_plain_close(replay_dw_plan(x, g, k_shape, plan),
+                        ttap.tap_conv_dw_plain(x, g, k_shape), f"K5 {form}")
+
+
+@pytest.mark.parametrize("x_shape,k_shape,form", DW_PLAN_CASES)
+def test_dw_plan_covers_every_tap_once(x_shape, k_shape, form):
+    """Every tap lands in exactly one box of one group; a box of two taps
+    holds neighbours t, t + 1 in one row of the last kernel dim (row
+    shifts one apart); no group holds more boxes than a block multiplies;
+    the splits cover the reduction and none is empty."""
+    plan = _dw_plan_of(x_shape, k_shape, form)
+    kd = k_shape[:-2]
+    taps = [t for group in plan.groups for box in group for t in box]
+    assert sorted(taps) == list(range(int(np.prod(kd))))
+    for group in plan.groups:
+        assert 1 <= len(group) <= (1 if form == "rows" else ttap._DW_BOXES)
+        for box in group:
+            assert len(box) == 1 or (len(box) == 2 and box[1] == box[0] + 1
+                                     and box[1] % kd[-1] != 0 and k_shape[-1] <= 32)
+    bk = plan.tile[2]
+    positions = x_shape[0] * int(np.prod(x_shape[1:-1] if form == "canvas" else
+                                         [d - k + 1 for d, k in zip(x_shape[1:-1], kd)]))
+    steps, per = -(-positions // bk), plan.rows_per_split // bk
+    assert plan.rows_per_split % bk == 0 and per == -(-steps // plan.splits)
+    assert (plan.splits - 1) * per < steps <= plan.splits * per
+    table = ttap.dw_box_table(plan) if form == "canvas" else None
+    if table is not None:  # the kernel's view of the same plan
+        assert table.shape == (len(plan.groups), 1 + 2 * ttap._DW_BOXES)
+        for row, group in zip(table, plan.groups):
+            assert row[0] == len(group)
+            got = [tuple(int(t) for t in row[1 + 2 * u:3 + 2 * u] if t >= 0)
+                   for u in range(row[0])]
+            assert got == list(group)
+
+
+def test_dw_plan_at_primary_caps_shapes():
+    """PrimaryCaps at 28^2 -> 20^2, Ci 832.  The pose conv (Co 512): the
+    valid-row form, no split, 7 Ci tiles x 2 Co tiles x 81 taps = 1134
+    blocks on any card.  The act conv (Co 32): the canvas form, 45 boxes
+    (four pairs and a single tap in each row of 9) in 12 groups of up to
+    4 boxes, split 3 ways on 132 SMs (7 x 12 x 3 = 252 blocks, 1.9 waves)
+    and 4 ways on the PCIe H100's 114 (336, 2.9 waves)."""
+    for batch in (16, 14):
+        for sms in (H100_SMS, 114):
+            pose = ttap.dw_plan(batch, (28, 28), (9, 9), 832, 512, sms)
+            assert (pose.form, pose.splits, pose.blocks) == ("rows", 1, 1134)
+            assert pose.rows_per_split == -(-batch * 400 // 64) * 64
+    act = ttap.dw_plan(16, (28, 28), (9, 9), 832, 32, H100_SMS)
+    assert act.form == "canvas" and len(act.groups) == 12
+    assert [len(gr) for gr in act.groups] == [4] * 11 + [1]
+    assert sum(len(box) == 2 for gr in act.groups for box in gr) == 36
+    assert (act.splits, act.rows_per_split, act.blocks) == (3, 66 * 64, 252)
+    assert ttap.dw_plan(16, (28, 28), (9, 9), 832, 32, 114)[3:] == (4, 49 * 64, 336)
+    assert ttap.dw_plan(14, (28, 28), (9, 9), 832, 32, H100_SMS)[3:] == (3, 58 * 64, 252)
+
+
+@pytest.mark.parametrize("mode,co,ratio", [
+    (ttap._FWD, 512, 1.0), (ttap._FWD, 32, 2.0),  # K3: Co 32 padded to 64
+    (ttap._DX, 512, 1.8533), (ttap._DX, 32, 1.8748),  # K4: the listed taps
+    (ttap._DW, 512, 1.0), (ttap._DW, 32, 2.3230),  # K5: canvas rows, 12 x 256 columns
+])
+def test_work_ratio_at_the_train_shape(mode, co, ratio):
+    """The issued over the useful multiply-adds of each bf16 kernel at
+    PrimaryCaps' train shape, from the plans themselves."""
+    got = ttap.work_ratio(mode, 16, (28, 28), (9, 9), 832, co, H100_SMS)
+    assert got == pytest.approx(ratio, abs=1e-4)
