@@ -10,15 +10,18 @@ failure exits non-zero (no phase is caught and passed over):
   2 build   nvcc on every picad_tpu_torch/csrc/*.cu for sm_90a, one
             process per source, all started together; build seconds,
             ptxas's register/spill report, and the count of HGMMA (wgmma)
-            instructions in each of the built tap-conv library's bf16
-            kernels (cuobjdump -sass; fails if K3's, K4's or K5's has none:
-            all three run on wgmma).
+            instructions in each bf16 kernel of the built libraries, K1
+            and K2 (composite_convt, composite_convt_bwd) and K3-K5
+            (tap_conv) (cuobjdump -sass; fails if any has none: all five
+            run on wgmma).
   3 kernel  each kernel against its plain PyTorch version on the same
             inputs, in bf16 and f32, max error <= 1e-4 * max|plain| (f32
             sums in another order; bf16 outputs also one bf16 ulp):
-            composite_convt (K1) at the serving shape (14, 4, 112, 112,
-            128), the train shape (16, ...) and a ragged shape;
-            composite_convt_bwd (K2) at the train shape and a ragged one;
+            composite_convt (K1) and composite_convt_bwd (K2) at the
+            serving shape (14, 4, 112, 112, 128), the train shape (16,
+            ...), a ragged shape and a wide one (W 300: three w-tiles; C
+            136: two channel blocks), with their bf16 plans and work
+            ratios (fused_head_kernel.fwd_plan, bwd_plan);
             bn_stats (K6) at the four BN inputs of the train step that take
             it, plus the cancellation-stress input (against float64);
             tap_conv_fwd, tap_conv_dx and tap_conv_dw (K3, K4, K5) at
@@ -92,6 +95,7 @@ from picad_tpu_torch.config import LossConfig
 from picad_tpu_torch.models import layers
 from picad_tpu_torch.models.capsules import build_capsnet
 from picad_tpu_torch.ops import _build, tapconv
+from picad_tpu_torch.ops import fused_head_kernel as fhk
 from picad_tpu_torch.ops.bn_stats import bn_stats, bn_stats_library, bn_stats_plain
 from picad_tpu_torch.ops.fused_head_kernel import (
     composite_convt,
@@ -110,6 +114,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / FP32
 SERVE_SHAPE = (14, 4, 112, 112, 128)  # the head input at clip batch 14, 224^2
 TRAIN_SHAPE = (16, 4, 112, 112, 128)  # ... in the train step: [data; aug] of batch 8
 RAGGED_SHAPE = (2, 3, 20, 13, 128)
+WIDE_SHAPE = (2, 3, 5, 300, 136)  # K1 and K2 past one w-tile and one 128-channel block
 # PrimaryCaps' two 9x9 VALID convs, x (B, 28, 28, 832) -> (B, 20, 20, Co):
 # B = 14 serving, 16 in the train step; Co = 512 pose, 32 activation
 PCAPS_BATCH = {"serve": 14, "train": 16}
@@ -158,23 +163,26 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip()
 
 
-# the tap-conv library's bf16 kernels, by a fragment of their names
-WGMMA_KERNELS = {"K3": "tap_conv_fwd_wgmma", "K4": "tap_conv_dx_wgmma",
-                 "K5": "tap_conv_dw_wgmma"}
+# the bf16 kernels: (library, a fragment of their device function names)
+WGMMA_KERNELS = {"K1": ("composite_convt", "composite_convt_wgmma"),
+                 "K2": ("composite_convt_bwd", "composite_bwd_wgmma"),
+                 "K3": ("tap_conv", "tap_conv_fwd_wgmma"), "K4": ("tap_conv", "tap_conv_dx_wgmma"),
+                 "K5": ("tap_conv", "tap_conv_dw_wgmma")}
 
 
-def hgmma_counts(lib) -> dict:
-    """HGMMA (wgmma) instructions in a built library's SASS, summed over
-    the functions of each of WGMMA_KERNELS."""
+def hgmma_counts(libs: dict) -> dict:
+    """HGMMA (wgmma) instructions in the built libraries' SASS (`libs`:
+    name -> path), summed over the functions of each of WGMMA_KERNELS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    r = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                       timeout=120, check=True)
     counts = dict.fromkeys(WGMMA_KERNELS, 0)
-    for fn in r.stdout.split("Function : ")[1:]:
-        name = fn.split(None, 1)[0]
-        for k, frag in WGMMA_KERNELS.items():
-            if frag in name:
-                counts[k] += len(re.findall(r"\bHGMMA\b", fn))
+    for lib in sorted({lib for lib, _ in WGMMA_KERNELS.values()}):
+        r = subprocess.run([tool, "-sass", str(libs[lib])], capture_output=True, text=True,
+                           timeout=120, check=True)
+        for fn in r.stdout.split("Function : ")[1:]:
+            name = fn.split(None, 1)[0]
+            for k, (klib, frag) in WGMMA_KERNELS.items():
+                if klib == lib and frag in name:
+                    counts[k] += len(re.findall(r"\bHGMMA\b", fn))
     return counts
 
 
@@ -228,8 +236,10 @@ def check_composite(shape, dtype, seed, timed: bool) -> dict:
 
 
 # the device names of each port kernel's CUDA functions
-KERNEL_FRAGMENTS = {"composite_convt": ("composite_convt_kernel",),
-                    "composite_convt_bwd": ("composite_bwd_kernel", "reduce_partials"),
+KERNEL_FRAGMENTS = {"composite_convt": ("composite_convt_kernel", "composite_convt_wgmma",
+                                        "composite_convt_group_sum"),
+                    "composite_convt_bwd": ("composite_bwd_kernel", "composite_bwd_wgmma",
+                                            "reduce_partials"),
                     "bn_stats": ("plane_sums", "group_finish"),
                     "tap_conv_fwd": ("tap_conv_fwd_",),  # f32, wgmma and split-sum kernels
                     "tap_conv_dx": ("tap_conv_dx_",),
@@ -618,15 +628,15 @@ def main() -> int:
     wall = time.perf_counter() - t0
     ptxas = {b.name: re.findall(r"Used \d+ registers|\d+ bytes spill stores, \d+ bytes spill loads",
                                    b.log) for b in builds}
-    hgmma = hgmma_counts(next(b.path for b in builds if b.name == "tap_conv"))
+    hgmma = hgmma_counts({b.name: b.path for b in builds})
     results["build"] = {"wall_s": wall, "per_source_s": {b.name: b.seconds for b in builds},
-                        "ptxas": ptxas, "tap_conv_hgmma": hgmma}
+                        "ptxas": ptxas, "hgmma": hgmma}
     if not all(hgmma.values()):
-        raise AssertionError(f"a bf16 tap-conv kernel without HGMMA (lost wgmma): {hgmma}")
+        raise AssertionError(f"a bf16 kernel without HGMMA (lost wgmma): {hgmma}")
     phase(2, "build", f"{len(builds)} source(s) for sm_90a in {wall:.1f} s: "
           + "; ".join(f"{b.name} {b.seconds:.1f} s {ptxas[b.name]}" for b in builds)
-          + f" | HGMMA instructions in tap_conv's bf16 kernels: {hgmma}, "
-          f"{sum(hgmma.values())} in all (K3, K4 and K5 each on wgmma)")
+          + f" | HGMMA instructions in the bf16 kernels: {hgmma}, "
+          f"{sum(hgmma.values())} in all (K1-K5 each on wgmma)")
 
     # 3 kernels vs plain
     reset_counts()
@@ -635,15 +645,20 @@ def main() -> int:
         check_composite(SERVE_SHAPE, torch.float32, args.seed, timed=True),
         check_composite(TRAIN_SHAPE, torch.bfloat16, args.seed, timed=True),
         check_composite(TRAIN_SHAPE, torch.float32, args.seed, timed=False),
-        check_composite(RAGGED_SHAPE, torch.bfloat16, args.seed + 1, timed=False),
-        check_composite(RAGGED_SHAPE, torch.float32, args.seed + 1, timed=False),
-    ]
+    ] + [check_composite(shape, dtype, args.seed + 1, timed=False)
+         for shape in (RAGGED_SHAPE, WIDE_SHAPE) for dtype in (torch.bfloat16, torch.float32)]
     bwd = [
         check_composite_bwd(TRAIN_SHAPE, torch.bfloat16, args.seed, timed=True),
         check_composite_bwd(TRAIN_SHAPE, torch.float32, args.seed, timed=True),
-        check_composite_bwd(RAGGED_SHAPE, torch.bfloat16, args.seed + 1, timed=False),
-        check_composite_bwd(RAGGED_SHAPE, torch.float32, args.seed + 1, timed=False),
-    ]
+    ] + [check_composite_bwd(shape, dtype, args.seed + 1, timed=False)
+         for shape in (SERVE_SHAPE, RAGGED_SHAPE, WIDE_SHAPE)
+         for dtype in (torch.bfloat16, torch.float32)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k12_plans = {
+        "composite_convt": {use: fhk.fwd_plan(*shape)._asdict()
+                            for use, shape in (("serve", SERVE_SHAPE), ("train", TRAIN_SHAPE))},
+        "composite_convt_bwd": {"train": fhk.bwd_plan(*TRAIN_SHAPE, sms)._asdict(), "sms": sms},
+    }
     stats = [check_bn_stats(shape, dtype, args.seed + k, timed=(k == 0))
              for k, shape in enumerate(BN_SHAPES) for dtype in (torch.bfloat16, torch.float32)]
     stress = check_bn_stats_stress(args.seed)
@@ -652,7 +667,7 @@ def main() -> int:
             for k, (use, conv, dtype) in enumerate(itertools.product(
                 PCAPS_BATCH, PCAPS_CO, (torch.bfloat16, torch.float32)))]
     results.update(composite_convt=checks, composite_convt_bwd=bwd, bn_stats=stats,
-                   bn_stats_stress=stress, tap_conv=taps)
+                   bn_stats_stress=stress, tap_conv=taps, composite_plans=k12_plans)
     n_checked = read_counts()
 
     def timing(c):
@@ -662,10 +677,17 @@ def main() -> int:
 
     phase(3, "kernel", "tol 1e-4*max|plain| (+1 bf16 ulp): composite_convt " + "; ".join(
         f"{c['dtype']} {tuple(c['shape'])} err {c['max_abs_err']:.2e}" + timing(c)
-        for c in checks) + " | composite_convt_bwd " + "; ".join(
+        for c in checks) + " | K1 plan: {blocks} blocks of {rows} rows x every frame over "
+        "{nwt} w-tile(s), {groups} channel group(s), work ratio {work_ratio:.3f} (train)".format(
+            nwt=len(k12_plans["composite_convt"]["train"]["w_starts"]),
+            **k12_plans["composite_convt"]["train"])
+        + " | composite_convt_bwd " + "; ".join(
         f"{c['dtype']} {tuple(c['shape'])} dx err {c['dx_err']:.2e} (max {c['max_abs_dx']:.2f}) "
         f"dKc err {c['dKc_err']:.2e} (max {c['max_abs_dKc']:.1f})" + timing(c)
-        for c in bwd) + " | bn_stats " + "; ".join(
+        for c in bwd) + " | K2 plan: {tiles} tiles a sample in {splits} splits of {per}, "
+        "{blocks} blocks on {sms} SMs, work ratio {work_ratio:.3f} (train)".format(
+            sms=sms, **k12_plans["composite_convt_bwd"]["train"])
+        + " | bn_stats " + "; ".join(
         f"{c['dtype']} {tuple(c['shape'])} err {max(c['mean_err'], c['var_err']):.2e}"
         + timing(c) for c in stats)
         + f" | bn_stats stress vs float64: mean {stress['mean_rel_err']:.2e} var "

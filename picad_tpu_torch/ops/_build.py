@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own
 into `build/lib<name>-<source hash>.so` inside the package (a directory
-.gitignore lists), at first use.  The hash in the file name means an
-edited source is never served by a stale library.  Nothing here runs at
+.gitignore lists), at first use.  The hash covers the source and every
+shared header `csrc/*.cuh` (hopper.cuh), so an edited source or header
+is never served by a stale library.  Nothing here runs at
 import time, and nothing touches nvcc until a kernel is launched or
 `build()` is called.
 """
@@ -43,8 +44,12 @@ def kernel_names() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """build/lib<name>-<hash>.so, the hash over csrc/<name>.cu and every
+    csrc/*.cuh by name and content."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc() -> str:

@@ -17,6 +17,14 @@ cropped-plane corrections (fused_head._exact_fused adds those).  It is a
   only (x, Kc), never the output, so the caller may add into the output
   in place.
 
+In bf16 on the card both kernels run on wgmma, at plans made here and
+testable without the card: K1 (csrc/composite_convt.cu) takes the
+row-shift operand `fwd_operand(Kc)` (Bop, one gather from a cached index)
+at `fwd_plan`'s w-tiles, row blocks and channel groups; K2
+(csrc/composite_convt_bwd.cu) builds its G tiles through
+`bwd_tap_table` and splits each sample's tiles by `bwd_plan`.  In f32
+both run their FP32-core bodies.
+
 Kernels are built with nvcc at first use and bound with ctypes.  On a
 CUDA tensor a wrapper launches its kernel or raises: there is no
 fallback.  The plain versions are also what the kernels are held against
@@ -27,8 +35,11 @@ count kernel launches, and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,12 +47,127 @@ import torch.nn.functional as F
 # phi: (tap, input shift) pairs per phase
 _PHASE_TAPS = {0: [(0, 1), (2, 0), (4, -1)], 1: [(1, 1), (3, 0)]}
 _NTAPS = 125
-_TILE = 16  # composite_convt_bwd.cu's (h, w) tile
+_TILE = 16  # the f32 K2 body's (h, w) tile
+# bf16 K1 (composite_convt.cu's wgmma body): the row-shift decomposition
+# (s_t, s_h) in Bop's order: s_h major, so a product takes the 3 s_t of one s_h
+_SHIFTS = tuple((st, sh) for sh in (-1, 0, 1) for st in (-1, 0, 1))
+_FWD_TILE = 128  # input positions of a w-tile, from w0 - 1
+_FWD_OWN = _FWD_TILE - 2  # outputs w' a w-tile owns: [w0, w0 + 126)
+_FWD_ROWS = 2  # output rows h' a block owns
+_FWD_N = 24  # Bop's columns a shift: (phi_t, phi_h, tau_w), 20 used
+_FWD_NT = 3 * _FWD_N  # a product's columns: Bop's 3 s_t at one s_h
+_CHUNK = 128  # channels a block: K1's channel group, K2's chunk
+_BWD_TILE = 128  # bf16 K2 (composite_convt_bwd.cu's wgmma body): positions (w) a tile
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     """f32 accumulation, or f64 for f64 inputs (gradcheck)."""
     return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _tau(s: int, phi: int):
+    """The tap through which input shift s (i = o' + s) reaches output
+    phase phi on one axis, or None (_PHASE_TAPS)."""
+    return next((t for t, sh in _PHASE_TAPS[phi] if sh == s), None)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_operand_index() -> np.ndarray:
+    """bf16 K1's operand as rows of Kc: int64 (9 * _FWD_N,), entry (shift
+    (s_t, s_h), column n = (2 phi_t + phi_h) * 5 + tau_w) = the tap
+    tau_t(s_t, phi_t) * 25 + tau_h(s_h, phi_h) * 5 + tau_w, or _NTAPS (a
+    zero row) where the shift feeds no phase and in the 4 padding
+    columns."""
+    idx = np.full((len(_SHIFTS), _FWD_N), _NTAPS, np.int64)
+    for si, (st, sh) in enumerate(_SHIFTS):
+        for pt, ph, tw in itertools.product((0, 1), (0, 1), range(5)):
+            a, b = _tau(st, pt), _tau(sh, ph)
+            if a is not None and b is not None:
+                idx[si, (2 * pt + ph) * 5 + tw] = a * 25 + b * 5 + tw
+    return idx.reshape(-1)
+
+
+_INDEX: dict = {}  # device -> fwd_operand_index() on it
+
+
+def fwd_operand(Kc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Bop, bf16 K1's B operand: Kc (B, 5, 5, 5, C) -> (B, 9 * 24, C) in
+    `dtype`, Bop[b, shift * 24 + n, c] = Kc[b, fwd_operand_index()[...], c]
+    with a zero row for _NTAPS: one gather from an index cached per
+    device."""
+    B, C = Kc.shape[0], Kc.shape[-1]
+    idx = _INDEX.get(Kc.device)
+    if idx is None:
+        idx = _INDEX[Kc.device] = torch.from_numpy(fwd_operand_index()).to(Kc.device)
+    kz = F.pad(Kc.reshape(B, _NTAPS, C).to(dtype), (0, 0, 0, 1))  # row _NTAPS is zero
+    return kz[:, idx]
+
+
+class FwdPlan(NamedTuple):
+    """bf16 K1's launch plan (`fwd_plan`)."""
+
+    w_starts: tuple  # each w-tile's first output w'; its input rows start at w' - 1
+    rows: int  # R: output rows h' a block owns
+    row_blocks: int
+    groups: int  # channel groups of _CHUNK, summed in group order when > 1
+    blocks: int
+    work_ratio: float  # issued multiply-adds over the useful ones
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(B: int, T: int, H: int, W: int, C: int) -> FwdPlan:
+    """bf16 K1's plan: w-tiles of _FWD_TILE input positions from w0 - 1
+    owning the outputs [w0, w0 + _FWD_OWN), blocks of _FWD_ROWS output rows
+    of every frame, channel groups of _CHUNK.  A block loads each x row
+    (t, h), h in [h0 - 1, h0 + R] inside x, once per 64-channel chunk, and
+    issues a 128 x _FWD_NT x 64 product (the 3 s_t at s_h) for every row h'
+    = h - s_h of the block: over all blocks, 3H - 2 products a frame,
+    w-tile and chunk."""
+    nwt = -(-W // _FWD_OWN)
+    row_blocks = -(-H // _FWD_ROWS)
+    groups = -(-C // _CHUNK)
+    issued = B * nwt * T * (3 * H - 2) * _FWD_NT * _FWD_TILE * 64 * -(-C // 64)
+    return FwdPlan(tuple(range(0, W, _FWD_OWN)), _FWD_ROWS, row_blocks, groups,
+                   nwt * row_blocks * B * groups, issued / (B * T * H * W * C * _NTAPS))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_tap_table() -> np.ndarray:
+    """bf16 K2's tap table: int32 (125, 3, 2), tap tau -> per axis (t, h,
+    w) its (rho, m) with tau_axis = 2m + rho: G[i, tau] is the phase-rho
+    plane of g along that axis at index i + m - 1."""
+    taps = np.array(list(itertools.product(range(5), repeat=3)), np.int32)
+    return np.stack([taps % 2, taps // 2], axis=-1)
+
+
+class BwdPlan(NamedTuple):
+    """bf16 K2's launch plan (`bwd_plan`)."""
+
+    tiles: int  # tiles of a sample: T * w_tiles * H, tile q = (t * w_tiles + wt) * H + h
+    w_tiles: int
+    chunks: int  # channel chunks of _CHUNK
+    splits: int  # S: each sample's tiles in S ranges of `per`, partials summed in order
+    per: int
+    blocks: int
+    work_ratio: float
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(B: int, T: int, H: int, W: int, C: int, sms: int) -> BwdPlan:
+    """bf16 K2's plan for `sms` SMs: tiles of _BWD_TILE positions along w
+    (h fastest, so a block's next tile reuses 3 of its 5 g rows a frame),
+    channel chunks of _CHUNK, and each sample's tiles split into S
+    contiguous ranges, S = sms // (B * chunks) so that the blocks fill
+    the card once (one block an SM), none empty.  The issued work pads the
+    positions to the tile, the taps to 128 and C to the chunk."""
+    nwt = -(-W // _BWD_TILE)
+    tiles = T * nwt * H
+    chunks = -(-C // _CHUNK)
+    s = max(1, min(tiles, sms // (B * chunks)))
+    per = -(-tiles // s)
+    s = -(-tiles // per)
+    ratio = nwt * _BWD_TILE / W * 128 / _NTAPS * chunks * _CHUNK / C
+    return BwdPlan(tiles, nwt, chunks, s, per, s * chunks * B, ratio)
 
 
 def composite_convt_plain(x: torch.Tensor, Kc: torch.Tensor) -> torch.Tensor:
@@ -171,14 +297,24 @@ def _composite_fwd(x: torch.Tensor, Kc: torch.Tensor) -> torch.Tensor:
         return composite_convt_plain(x, Kc)
     _check_cuda("composite_convt", x, Kc)
     B, T, H, W, C = x.shape
-    if B * T > 65535:
-        raise ValueError(f"composite_convt kernel: B*T={B * T} exceeds the grid")
-    kc = _tap_matrix(x, Kc)
     out = torch.empty((B, 2 * T, 2 * H, 2 * W), dtype=torch.float32, device=x.device)
+    ws, rows, groups = None, 0, 0
+    if x.dtype == torch.bfloat16:  # the wgmma body at fwd_plan's plan
+        plan = fwd_plan(B, T, H, W, C)
+        rows, groups = plan.rows, plan.groups
+        if B * groups > 65535 or plan.row_blocks > 65535:
+            raise ValueError(f"composite_convt kernel: B={B}, H={H}, C={C} exceed the grid")
+        kc = fwd_operand(Kc, x.dtype)
+        if groups > 1:
+            ws = torch.empty((groups, *out.shape), dtype=torch.float32, device=x.device)
+    else:
+        if B * T > 65535:
+            raise ValueError(f"composite_convt kernel: B*T={B * T} exceeds the grid")
+        kc = _tap_matrix(x, Kc)
     with torch.cuda.device(x.device):
-        err = _kernel_fn("composite_convt", 3, 6)(
-            x.data_ptr(), kc.data_ptr(), out.data_ptr(),
-            B, T, H, W, C, int(x.dtype == torch.bfloat16),
+        err = _kernel_fn("composite_convt", 4, 9)(
+            x.data_ptr(), kc.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+            B, T, H, W, C, int(x.dtype == torch.bfloat16), rows, _FWD_OWN, groups,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -203,17 +339,24 @@ def composite_convt_bwd(g: torch.Tensor, x: torch.Tensor, Kc: torch.Tensor):
     _check_cuda("composite_convt_bwd", x, Kc, g)
     if B > 65535 or H > 16 * 65535:
         raise ValueError(f"composite_convt_bwd kernel: B={B}, H={H} exceed the grid")
-    gq = g.to(x.dtype).contiguous()
     kc = _tap_matrix(x, Kc)
-    n_tiles = -(-H // _TILE) * -(-W // _TILE)
+    if x.dtype == torch.bfloat16:  # the wgmma body at bwd_plan's plan; g rounded inside
+        plan = bwd_plan(B, T, H, W, C,
+                        torch.cuda.get_device_properties(x.device).multi_processor_count)
+        gq = g.to(torch.float32).contiguous()
+        gq = gq.clone() if gq.data_ptr() % 16 != 0 else gq
+        n_part, tile, chunk, splits, per = plan.splits, _BWD_TILE, _CHUNK, plan.splits, plan.per
+    else:
+        gq = g.to(x.dtype).contiguous()
+        n_part, tile, chunk, splits, per = -(-H // _TILE) * -(-W // _TILE), 0, 0, 0, 0
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
-    partial = torch.empty((B, n_tiles, _NTAPS, C), dtype=torch.float32, device=x.device)
+    partial = torch.empty((B, n_part, _NTAPS, C), dtype=torch.float32, device=x.device)
     dkc = torch.empty((B, _NTAPS, C), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _kernel_fn("composite_convt_bwd", 6, 6)(
+        err = _kernel_fn("composite_convt_bwd", 6, 10)(
             gq.data_ptr(), x.data_ptr(), kc.data_ptr(), dx.data_ptr(),
             partial.data_ptr(), dkc.data_ptr(),
-            B, T, H, W, C, int(x.dtype == torch.bfloat16),
+            B, T, H, W, C, int(x.dtype == torch.bfloat16), tile, chunk, splits, per,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from picad_tpu_torch.models.capsules import PrimaryCaps, build_capsnet
-from picad_tpu_torch.ops import tapconv
+from picad_tpu_torch.ops import fused_head_kernel, tapconv
 from picad_tpu_torch.ops.bn_stats import bn_stats, bn_stats_plain, group_stats
 from picad_tpu_torch.ops.fused_head_kernel import (
     composite_convt,
@@ -56,6 +56,8 @@ def no_tf32():
         (1, 2, 17, 33, 24),  # C not a multiple of 16
         (3, 1, 16, 16, 8),  # T = 1
         (1, 5, 7, 40, 136),  # odd T, C > 128
+        (1, 2, 3, 300, 136),  # W > 128: three w-tiles in bf16; two channel groups
+        (1, 1, 2, 130, 264),  # W just past one w-tile; three channel groups
     ],
 )
 def test_composite_convt_kernel_matches_plain(card, shape, dtype):
@@ -116,6 +118,15 @@ def test_capsnet_bf16_on_card_is_finite(card):
     assert torch.isfinite(seg).all() and torch.isfinite(scores).all()
 
 
+def _nan_guarded(t: torch.Tensor, guard: int = 4096) -> torch.Tensor:
+    """A copy of t inside a buffer whose `guard` elements on either side
+    are NaN: a kernel that reads past t poisons its sums."""
+    buf = torch.full((t.numel() + 2 * guard,), float("nan"), dtype=t.dtype, device=t.device)
+    view = buf[guard:guard + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def _composite_bwd_inputs(card, shape, dtype, seed=0):
     g = torch.Generator(device=card).manual_seed(seed)
     B, T, H, W, C = shape
@@ -145,6 +156,8 @@ def assert_close_to_plain(out, ref, name):
         (1, 2, 17, 33, 24),  # C not a multiple of 32
         (3, 1, 16, 16, 8),  # T = 1
         (1, 5, 7, 40, 136),  # odd T, C > 128
+        (1, 2, 3, 300, 136),  # W > 128: three tiles a row in bf16; two channel chunks
+        (2, 1, 2, 129, 8),  # W just past one tile
     ],
 )
 def test_composite_convt_bwd_kernel_matches_plain(card, shape, dtype):
@@ -156,6 +169,60 @@ def test_composite_convt_bwd_kernel_matches_plain(card, shape, dtype):
     dx_ref, dKc_ref = composite_convt_bwd_plain(gout, x, Kc)
     assert_close_to_plain(dx, dx_ref, "dx")
     assert_close_to_plain(dKc, dKc_ref, "dKc")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_composite_convt_kernels_are_deterministic(card, dtype):
+    """Two launches of K1 and of K2 at the train shape give the same bits:
+    every output written once, K2's dKc partials summed in a fixed order,
+    no atomics."""
+    gout, x, Kc = _composite_bwd_inputs(card, (16, 4, 112, 112, 128), dtype, seed=3)
+    outs = [composite_convt(x, Kc) for _ in range(2)]
+    grads = [composite_convt_bwd(gout, x, Kc) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]), "K1"
+    assert torch.equal(grads[0][0], grads[1][0]), "K2 dx"
+    assert torch.equal(grads[0][1], grads[1][1]), "K2 dKc"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 20, 13, 128), (1, 2, 3, 300, 24)])
+def test_composite_convt_kernels_read_nothing_outside_their_operands(card, shape, dtype):
+    """x, Kc and g between NaN guards: the kernels must read zeros, not
+    memory, for w = -1, w >= W, taps past 125 (K2's Kc map) and g outside
+    its planes."""
+    gout, x, Kc = _composite_bwd_inputs(card, shape, dtype, seed=4)
+    Kc = Kc.to(dtype)
+    xg, kg, gg = _nan_guarded(x), _nan_guarded(Kc), _nan_guarded(gout)
+    out = composite_convt(xg, kg)
+    dx, dKc = composite_convt_bwd(gg, xg, kg)
+    torch.cuda.synchronize()
+    ref = composite_convt_plain(x, Kc)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= KERNEL_RTOL * ref.abs().max().item()
+    dx_ref, dKc_ref = composite_convt_bwd_plain(gout, x, Kc)
+    assert_close_to_plain(dx, dx_ref, "dx")
+    assert_close_to_plain(dKc, dKc_ref, "dKc")
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_composite_convt_kernel_refuses_a_plan_it_is_not_built_for(card, monkeypatch, kernel):
+    """bf16 K1 at 4 rows a block, bf16 K2 with splits that miss tiles:
+    the kernel launches nothing and the wrapper raises."""
+    gout, x, Kc = _composite_bwd_inputs(card, (2, 3, 20, 13, 16), torch.bfloat16)
+    if kernel == "fwd":
+        plan = fused_head_kernel.fwd_plan
+        monkeypatch.setattr(fused_head_kernel, "fwd_plan", lambda *a: plan(*a)._replace(rows=4))
+        fn, args = composite_convt, (x, Kc)
+    else:
+        plan = fused_head_kernel.bwd_plan
+        monkeypatch.setattr(fused_head_kernel, "bwd_plan",
+                            lambda *a: plan(*a)._replace(splits=1, per=1))
+        fn, args = composite_convt_bwd, (gout, x, Kc)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fn(*args)
+    assert fn.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -346,15 +413,6 @@ def test_tap_conv_bf16_kernels_are_deterministic(card, co):
     assert torch.equal(runs[0][0], runs[1][0]), "K3"
     assert torch.equal(runs[0][1], runs[1][1]), "K4"
     assert torch.equal(runs[0][2], runs[1][2]), "K5"
-
-
-def _nan_guarded(t: torch.Tensor, guard: int = 4096) -> torch.Tensor:
-    """A copy of t inside a buffer whose `guard` elements on either side
-    are NaN: a kernel that reads past t poisons its sums."""
-    buf = torch.full((t.numel() + 2 * guard,), float("nan"), dtype=t.dtype, device=t.device)
-    view = buf[guard:guard + t.numel()].view(t.shape)
-    view.copy_(t)
-    return view
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
