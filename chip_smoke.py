@@ -69,6 +69,27 @@ failure exits non-zero (no phase is caught and passed over):
             peak memory.
   9 train-profile torch.profiler over one warm train step: wall, device
             time, busy share, each kernel's time and the top entries.
+ 10 stem    the plain 7^3/s2 stem (Unit3D) against StemS2D, bf16, at the
+            train shape (16, 3, 8, 224, 224) and the serving shape (14,
+            ...): eval forward and train forward + backward (dW and the BN
+            backward; the clip needs no gradient) ms, StemS2D in NCDHW and
+            in channels_last_3d; S2D within STEM_RTOL of plain (the eval
+            output, and dW and the BN weight's gradient of a train step), and the packed uint8 branch
+            against the f32 branch in f32 (TF32 off) within 1e-4 of the
+            largest value; the model's default stem must be within
+            STEM_CHOICE_SLACK of the fastest.
+ 11 data    the train step fed by the input pipeline, as bench.py:266-403:
+            a DeviceVideoCache on the card from two SyntheticVideoSource(16,
+            40 frames of 240x320) (labelled fractions 1 and 0, seeds 1 and
+            2); the first card-assembled batch bit-identical to the host
+            streaming ClipDataset(device_prep=True) batch of the same seed;
+            then DATA_STEPS bf16 train steps through PrefetchLoader with
+            make_assembler_put and DATA_STEPS through host streaming with
+            pinned prefetch, each with the launch counts set to 0 just
+            before and read just after (K1-K6 per step as in phase 8);
+            finite losses, e2e clips/s and the median warm step wall of
+            each, and which host path (libclip_ops.so or numpy) assembled
+            the streaming batches.
 
 Then three lines: nvidia-smi's name and power limit, the kernel table as
 one JSON object, and last {"ok": true, "device": {...}}.  The full
@@ -92,7 +113,19 @@ import numpy as np
 import torch
 
 from picad_tpu_torch.config import LossConfig
-from picad_tpu_torch.models import layers
+from picad_tpu_torch.data.dataset import ClipDataset
+from picad_tpu_torch.data.device_cache import (
+    DeviceClipDataset,
+    DeviceVideoCache,
+    make_assembler_put,
+)
+from picad_tpu_torch.data.loader import PrefetchLoader, SemiSupervisedBatcher
+from picad_tpu_torch.data.sources import (
+    CachedVideoSource,
+    ConcatVideoSource,
+    SyntheticVideoSource,
+)
+from picad_tpu_torch.models import i3d, layers
 from picad_tpu_torch.models.capsules import build_capsnet
 from picad_tpu_torch.ops import _build, tapconv
 from picad_tpu_torch.ops import fused_head_kernel as fhk
@@ -149,6 +182,11 @@ METRIC_RTOL = 1e-4  # each loss term, beside the band
 SLICE_ATOL = 1e-3  # card vs CPU f32: EM routing's cost_std quirk amplifies
 # the summation-order noise of two conv libraries (the port vs op-by-op
 # JAX on the CPU: up to 4.3e-4 on the scores over six fixture draws)
+STEM_BATCH = {"train": 16, "serve": 14}  # [data; aug] of batch 8; the serving clip batch
+STEM_RTOL = 1e-2  # of max|plain|: bf16 products summed in another order, rounded to bf16
+STEM_CHOICE_SLACK = 1.10  # the default stem's time over the fastest's, at most
+DATA_STEPS = 6  # train steps through each input path in phase 11
+DATA_VIDEOS = 2 * TRAIN_BS  # videos per source, as bench.py:270
 
 
 def phase(n, name, msg):
@@ -563,6 +601,183 @@ def train_main_path(seed: int) -> tuple[dict, object]:
     return res, lambda: step(state, batch, TRAIN_EPOCH, TRAIN_RAMP)
 
 
+def _stem_module(cls, w, dtype=torch.bfloat16):
+    m = cls(3, 64, (7, 7, 7), (2, 2, 2), compute_dtype=dtype, bn_groups=2).cuda()
+    with torch.no_grad():
+        m.conv3d.weight.copy_(w)
+    return m
+
+
+def _within(out, ref, name, rtol=STEM_RTOL) -> float:
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if not (out.shape == ref.shape and err <= rtol * scale):
+        raise AssertionError(f"stem {name}: max|s2d - ref| = {err:.3e} > {rtol} * "
+                             f"{scale:.3e} (shapes {tuple(out.shape)}, {tuple(ref.shape)})")
+    return err
+
+
+def stem_phase(seed: int) -> dict:
+    """Phase 10: the plain stem against StemS2D in both layouts, bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((64, 3, 7, 7, 7), generator=gen, device="cuda") * (3 * 343) ** -0.5
+    variants = {"plain": (layers.Unit3D, i3d.S2D_CHANNELS_LAST),
+                "s2d_ncdhw": (i3d.StemS2D, False), "s2d_channels_last": (i3d.StemS2D, True)}
+    default = "s2d_channels_last" if i3d.S2D_CHANNELS_LAST else "s2d_ncdhw"
+    saved = i3d.S2D_CHANNELS_LAST
+    res = {"default": default}
+    try:
+        for use, batch in STEM_BATCH.items():
+            clip = torch.randint(0, 256, (batch, 8, 224, 224, 3), generator=gen, device="cuda",
+                                 dtype=torch.uint8)
+            x = (clip.float() / 255.0).permute(0, 4, 1, 2, 3)  # the model's view of its clips
+            r = torch.randn((batch, 64, 4, 112, 112), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            row, outs = {}, {}
+            for name, (cls, channels_last) in variants.items():
+                i3d.S2D_CHANNELS_LAST = channels_last
+                m = _stem_module(cls, w)
+
+                def fwd(m=m):
+                    with torch.inference_mode():
+                        return m.eval()(x)
+
+                def fwd_bwd(m=m):
+                    m.train().zero_grad(set_to_none=True)
+                    y = m(x)
+                    y.backward(r)
+                    return y
+
+                fwd_bwd()
+                outs[name] = (fwd(), m.conv3d.weight.grad.clone(), m.bn.weight.grad.clone())
+                row[name] = {"fwd_ms": cuda_ms(fwd, 10), "fwd_bwd_ms": cuda_ms(fwd_bwd, 10)}
+                del m
+            for name in ("s2d_ncdhw", "s2d_channels_last"):
+                row[name]["errs"] = {
+                    part: _within(a, b, f"{name} {use} {part}")
+                    for part, a, b in zip(("out", "dW", "d_bn_weight"), outs[name], outs["plain"])}
+            # the packed uint8 branch against the f32 branch, both in f32
+            # with TF32 off: conv(x, w/255) == conv(x/255, w) up to f32 rounding
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            m = _stem_module(i3d.StemS2D, w, torch.float32).eval()
+            with torch.inference_mode():
+                row["packed_u8_err"] = _within(m(i3d.s2d_pack(clip).permute(0, 4, 1, 2, 3)), m(x),
+                                               "packed uint8 (f32)", KERNEL_RTOL)
+            torch.backends.cudnn.allow_tf32 = tf32
+            del m
+            s2d = ("s2d_ncdhw", "s2d_channels_last")
+            row["faster_s2d_layout"] = min(s2d, key=lambda k: row[k]["fwd_bwd_ms"])
+            for metric in ("fwd_ms", "fwd_bwd_ms"):
+                best = min(row[k][metric] for k in variants)
+                if row[default][metric] > STEM_CHOICE_SLACK * best:
+                    raise AssertionError(
+                        f"stem {use}: the default {default} takes {row[default][metric]:.4f} ms "
+                        f"{metric}, the fastest {best:.4f} ms: {row}")
+            res[use] = row
+    finally:
+        i3d.S2D_CHANNELS_LAST = saved
+    return res
+
+
+def _epochs_forever(batcher, first: int = 1):
+    e = first
+    while True:
+        yield from batcher.epoch(e)
+        e += 1
+
+
+def _train_through(loader, step, state, want: dict) -> dict:
+    """DATA_STEPS train steps on batches from `loader`, launch counts set
+    to 0 just before and read just after; each step's wall includes
+    waiting for its batch."""
+    times, losses = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(DATA_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, next(loader), TRAIN_EPOCH, TRAIN_RAMP)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = read_counts()
+    warm = times[1:]
+    res = {"launches": launches, "step_s": times, "losses": losses,
+           "median_step_ms": float(np.median(warm)) * 1e3,
+           "e2e_clips_per_s": TRAIN_BS * len(warm) / sum(warm),
+           "finite": all(np.isfinite(v) for m in losses for v in m.values())}
+    if not (launches == want and res["finite"]):
+        raise AssertionError(f"data: launches {launches} (want {want}), losses {losses}")
+    return res
+
+
+def data_phase(seed: int, big_bn: int) -> dict:
+    """Phase 11: the bench-configuration train step fed through the
+    card-resident video cache and through host streaming."""
+    def make_src(labeled, src_seed):
+        return SyntheticVideoSource(DATA_VIDEOS, video_len=40, labeled_fraction=labeled,
+                                    seed=src_seed)
+
+    t0 = time.perf_counter()
+    cache = DeviceVideoCache.build(ConcatVideoSource([make_src(1.0, 1), make_src(0.0, 2)]),
+                                   budget_bytes=4 << 30)
+    torch.cuda.synchronize()
+    res = {"cache_build_s": time.perf_counter() - t0,
+           "pool_frames": cache.pool_video.shape[0],
+           "pool_mb": (cache.pool_video.numel() + cache.pool_mask.numel()) / 1e6}
+    pools = {"pool_video": cache.pool_video, "pool_mask": cache.pool_mask}
+    hw = (224, 224)
+
+    def meta_ds(offset):
+        return DeviceClipDataset(cache, index_offset=offset, length=DATA_VIDEOS, train=True,
+                                 clip_shape=hw)
+
+    def stream_ds(labeled, src_seed):
+        return ClipDataset(CachedVideoSource(make_src(labeled, src_seed), capacity_bytes=2 << 30),
+                           train=True, clip_shape=hw, device_prep=True)
+
+    kw = dict(batch_size=TRAIN_BS, seed=0, process_index=0, process_count=1)
+    cache_batcher = SemiSupervisedBatcher(meta_ds(0), meta_ds(DATA_VIDEOS), workers=2, **kw)
+    lab, unl = stream_ds(1.0, 1), stream_ds(0.0, 2)
+    stream_batcher = SemiSupervisedBatcher(lab, unl, workers=8, **kw)
+    res["host_assembler"] = ("libclip_ops.so" if lab._native is not None and unl._native is not None
+                             else "numpy")
+    for _ in stream_batcher.epoch(0):  # warm the decode cache, as bench.py does
+        pass
+
+    # the first card-assembled batch against the host streaming batch
+    assembler = make_assembler_put(pools, hw)
+    card_it = iter(PrefetchLoader(cache_batcher.epoch(1), put_fn=assembler))
+    host_it = stream_batcher.epoch(1)
+    card_batch, host_batch = next(card_it), next(host_it)
+    card_it.close()
+    host_it.close()
+    same = {k: (tuple(card_batch[k].shape) == host_batch[k].shape
+                and card_batch[k].dtype == torch.from_numpy(host_batch[k]).dtype
+                and np.array_equal(card_batch[k].cpu().numpy(), host_batch[k]))
+            for k in host_batch}
+    res["first_batch_bit_identical"] = same
+    if set(card_batch) != set(host_batch) or not all(same.values()):
+        raise AssertionError(f"data: card-assembled batch differs from the host batch: {same}")
+
+    want = {"composite_convt": DATA_STEPS, "composite_convt_bwd": DATA_STEPS,
+            "bn_stats": big_bn * DATA_STEPS, "tap_conv_fwd": 2 * DATA_STEPS,
+            "tap_conv_dx": 2 * DATA_STEPS, "tap_conv_dw": 2 * DATA_STEPS}
+    step = make_train_step(LossConfig(**TRAIN_CFG))
+    for path, loader in (
+            ("device_cache", PrefetchLoader(_epochs_forever(cache_batcher), put_fn=assembler)),
+            ("host_streaming", PrefetchLoader(_epochs_forever(stream_batcher)))):
+        state = create_train_state(seed=seed, device="cuda", bn_groups=2, dropout_rate=0.5)
+        it = iter(loader)
+        try:
+            res[path] = _train_through(it, step, state, want)
+        finally:
+            it.close()
+        del state
+    res["launches_per_step"] = {k: v // DATA_STEPS for k, v in want.items()}
+    return res
+
+
 def profile_call(fn) -> dict:
     """torch.profiler over one warm call of fn: wall time, the summed
     device time (kernels, copies, fills), its share of the wall, each
@@ -821,6 +1036,34 @@ def main() -> int:
             f"{k} {v:.3f} ms" for k, v in tp["kernel_ms"].items())
         + "; top: " + ", ".join(f"{k['name'][:40]} {k['device_ms']:.2f}" for k in tp["top"][:6])
         if tp["device_ms"] else "device time not measured (the profiler saw no CUDA activity)"))
+
+    del one_step  # phase 8's train state
+    torch.cuda.empty_cache()
+
+    # 10 the plain stem against the space-to-depth stem
+    results["stem"] = st = stem_phase(args.seed)
+    phase(10, "stem", "bf16, eval fwd / train fwd+bwd ms: " + "; ".join(
+        f"{use} (B {STEM_BATCH[use]}): " + ", ".join(
+            f"{k} {st[use][k]['fwd_ms']:.3f}/{st[use][k]['fwd_bwd_ms']:.3f}"
+            for k in ("plain", "s2d_ncdhw", "s2d_channels_last"))
+        + f", faster S2D layout {st[use]['faster_s2d_layout']}, S2D vs plain err "
+        + "/".join(f"{e:.2e}" for e in st[use]["s2d_channels_last"]["errs"].values())
+        + f" (tol {STEM_RTOL} * max|plain|), packed uint8 vs f32 branch in f32 "
+        f"{st[use]['packed_u8_err']:.2e} (tol {KERNEL_RTOL} * max)"
+        for use in STEM_BATCH) + f" | default {st['default']}"
+        f" | {smi}")
+
+    # 11 the train step fed by the input pipeline
+    results["data"] = dt = data_phase(args.seed, tr["big_bn_per_step"])
+    phase(11, "data", f"DeviceVideoCache {dt['pool_frames']} frames ({dt['pool_mb']:.1f} MB) "
+          f"built in {dt['cache_build_s']:.2f} s; first card-assembled batch bit-identical to "
+          f"the host batch: {all(dt['first_batch_bit_identical'].values())}; "
+          + "; ".join(f"{path}: {DATA_STEPS} steps, e2e {dt[path]['e2e_clips_per_s']:.2f} "
+                      f"clips/s, median warm step {dt[path]['median_step_ms']:.2f} ms, loss "
+                      f"{dt[path]['losses'][0]['loss']:.4f} -> {dt[path]['losses'][-1]['loss']:.4f}"
+                      for path in ("device_cache", "host_streaming"))
+          + f" (device-resident, phase 8: {tr['clips_per_s']:.2f} clips/s); launches per step "
+          f"{dt['launches_per_step']}; host batches assembled by {dt['host_assembler']} | {smi}")
 
     k1, k2, k6 = checks[2], bwd[0], stats[0]  # bf16 at the train shapes
     k35 = {conv: next(c for c in taps if "kernel_ms" in c["tap_conv_fwd"] and c["co"] == co)

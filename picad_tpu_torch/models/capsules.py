@@ -22,13 +22,16 @@ uses; the `w_shared` and general-K modes wait (ROADMAP.md).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from picad_tpu_torch._device import default_compute_dtype, resolve_device
 from picad_tpu_torch.models.i3d import InceptionI3d
-from picad_tpu_torch.models.layers import Dropout3d, WeightBias
+from picad_tpu_torch.models.layers import Dropout3d, WeightBias, frozen_running_stats
 from picad_tpu_torch.ops.convops import conv_nd, conv_transpose_nd
 from picad_tpu_torch.ops.em_routing import em_routing
 from picad_tpu_torch.ops.fused_head import fused_decoder_head
@@ -102,10 +105,15 @@ class CapsNet(nn.Module):
     the convolutions run in.  `bn_groups` > 1 when the original and the
     flipped views run as one batch (train mode only); `dropout_rate` is
     the channel dropout of the encoder output and of the decoder head.
+    `s2d_stem` picks the I3D stem (models/i3d.py).  `remat_encoder`
+    recomputes the I3D encoder's activations in the backward instead of
+    storing them (torch.utils.checkpoint; picad_tpu/models/capsules.py:
+    266-300), with one BN running-stat update per forward as in JAX.
     """
 
     def __init__(self, num_classes=24, pose_size=4, compute_dtype=torch.float32,
-                 fused_head=True, bn_groups=1, dropout_rate=0.5):
+                 fused_head=True, bn_groups=1, dropout_rate=0.5, s2d_stem=True,
+                 remat_encoder=False):
         super().__init__()
         C, P = num_classes, pose_size
         self.num_classes, self.pose_size = C, P
@@ -113,8 +121,9 @@ class CapsNet(nn.Module):
         self.fused_head = fused_head
         self.bn_groups = bn_groups
         self.dropout_rate = dropout_rate
+        self.remat_encoder = remat_encoder
         kw = dict(compute_dtype=compute_dtype)
-        self.conv1 = InceptionI3d(bn_groups=bn_groups, **kw)
+        self.conv1 = InceptionI3d(bn_groups=bn_groups, s2d_stem=s2d_stem, **kw)
         self.drop_enc = Dropout3d(dropout_rate)
         self.primary_caps = PrimaryCaps(832, 32, P, 9, **kw)
         self.conv_caps = ConvCaps(32, C, P, **kw)
@@ -181,11 +190,20 @@ class CapsNet(nn.Module):
         y = conv_nd(x.to(dt), m.weight.to(dt), 1, m.weight.shape[-1] // 2)
         return y + m.bias.view((1, -1) + (1,) * (y.ndim - 2))
 
+    def _encoder(self, x):
+        if not (self.remat_encoder and self.training and torch.is_grad_enabled()):
+            return self.conv1(x)
+        return checkpoint(
+            self.conv1, x, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), frozen_running_stats(self.conv1)))
+
     def forward(self, img: torch.Tensor, classification=None, concat_labels=None,
                 epoch=0, thresh_epoch=0, *, generator: torch.Generator | None = None):
         """img (B, 8, H, W, 3) channels-last, H and W divisible by 16 with
         H/8 - 8 >= 1 (224 in the reference) -> (seg_logits (B, 8, H, W) f32,
-        class_scores (B, C) f32, feat (B, h*w, C)).
+        class_scores (B, C) f32, feat (B, h*w, C)).  A uint8 img is the
+        packed clip of the packed prep (train/step.py), (B, 4, H/2, W/2, 24):
+        its logical T, H and W are twice its dims.
 
         Eval needs only img: the mask is the argmax one-hot (the JAX eval
         call passes a dummy action it ignores).  Train mode needs the
@@ -195,13 +213,15 @@ class CapsNet(nn.Module):
         C, psize = self.num_classes, self.pose_size ** 2
         dt = self.compute_dtype
         B, T, H, W, _ = img.shape
+        if img.dtype == torch.uint8:
+            T, H, W = 2 * T, 2 * H, 2 * W
         if T != 8:
             raise ValueError(f"the I3D/decoder temporal schedule needs T=8, got {T}")
         if self.training and (classification is None or concat_labels is None):
             raise ValueError("the train-mode forward needs classification and concat_labels")
         relu = torch.relu
 
-        x, cross56, cross112 = self.conv1(img.permute(0, 4, 1, 2, 3))
+        x, cross56, cross112 = self._encoder(img.permute(0, 4, 1, 2, 3))
         h28, w28 = H // 8, W // 8
         # T = 1 at Mixed_4f; dropout after the 4-D reshape (capsules.py:313)
         x = self.drop_enc(x.reshape(B, 832, h28, w28), generator)
@@ -260,13 +280,16 @@ def build_capsnet(
     device=None,
     bn_groups: int = 1,
     dropout_rate: float = 0.5,
+    s2d_stem: bool = True,
+    remat_encoder: bool = False,
 ) -> CapsNet:
     """The eval-mode CapsNet on `device` (default: the CUDA card); the
     train-mode one is `build_train_capsnet`.
 
     Weights come from a reference-format `state_dict` (numpy arrays or
     tensors) or, without one, from `init_weights` seeded with `seed`.
-    compute_dtype defaults to bf16 on the card and f32 on the CPU."""
+    compute_dtype defaults to bf16 on the card and f32 on the CPU.
+    `s2d_stem` and `remat_encoder` are CapsNet's options."""
     from picad_tpu_torch.checkpoint.convert import load_reference_state_dict
 
     dev = resolve_device(device)
@@ -276,6 +299,8 @@ def build_capsnet(
         fused_head=fused_head,
         bn_groups=bn_groups,
         dropout_rate=dropout_rate,
+        s2d_stem=s2d_stem,
+        remat_encoder=remat_encoder,
     )
     if state_dict is None:
         model.init_weights(torch.Generator().manual_seed(seed))

@@ -6,8 +6,10 @@ BatchNorm uses `bn_groups` groups of the batch (one per folded view).  Returns
 (Mixed_4f, out56, out112): out112 is the Conv3d_1a_7x7 activation and
 out56 the Conv3d_2c_3x3 activation.
 
-The stem is the plain 7^3/s2 conv.  The JAX package's StemS2D is a TPU
-layout trick with the same math and is not ported.
+The stem is StemS2D by default (`s2d_stem=True`, as in the JAX package):
+the 7^3/s2 conv on 3 channels computed as a 4^3/s1 conv on 24 channels,
+with the plain stem's parameters.  Odd T, H or W fall back to the plain
+conv, as the JAX package does (picad_tpu/models/i3d.py:238).
 
 Shapes for a (B, 3, 8, 224, 224) clip:
   Conv3d_1a_7x7 s2 -> (B, 64, 4, 112, 112) = out112
@@ -22,6 +24,7 @@ Shapes for a (B, 3, 8, 224, 224) clip:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from picad_tpu_torch.models.layers import Unit3D
@@ -37,6 +40,60 @@ INCEPTION_SPECS = {
     "Mixed_4e": (512, [112, 144, 288, 32, 64, 64]),
     "Mixed_4f": (528, [256, 160, 320, 32, 128, 128]),
 }
+
+
+# The S2D conv's layout.  Its packed input comes out of `s2d_pack` in
+# channels_last_3d strides; False makes it contiguous NCDHW first, and
+# True keeps it (the conv's output then needs a contiguous copy for the
+# BN).  chip_smoke.py phase 10 times both: NCDHW is the faster on the
+# H100 (PERF.md).
+S2D_CHANNELS_LAST = False
+
+
+def s2d_pack(x: torch.Tensor) -> torch.Tensor:
+    """2x2x2 space-to-depth of a channels-last (B, T, H, W, C) tensor ->
+    (B, T/2, H/2, W/2, 8C), channel order (tp, hp, wp, c): the packing of
+    picad_tpu/models/i3d.py:122-126 and train/step.py:86."""
+    B, T, H, W, C = x.shape
+    xp = x.reshape(B, T // 2, 2, H // 2, 2, W // 2, 2, C)
+    return xp.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(B, T // 2, H // 2, W // 2, 8 * C)
+
+
+class StemS2D(Unit3D):
+    """Conv3d_1a_7x7 via space-to-depth (picad_tpu/models/i3d.py:76-138):
+    the 7^3/s2 SAME conv on C channels as a 4^3/s1 conv on 8C channels.
+
+    out[o] = sum_k x[2o + k - 2] w[k] with SAME pads (2, 3); splitting x
+    by parity p and k = 2j + p gives a stride-1 kernel-4 conv with pads
+    (1, 2) in each dim, on the kernel zero-padded 7 -> 8 and re-indexed.
+    The parameters are the plain stem's (`conv3d.weight` (64, C, 7, 7, 7)
+    and `bn`), so state dicts load unchanged.
+
+    A uint8 input is the PACKED clip of the packed prep (train/step.py),
+    (B, 8C, T/2, H/2, W/2) of raw pixels: /255 folds into the kernel,
+    conv(x, w/255) == conv(x/255, w).  A float input with an odd T, H or
+    W takes the plain conv (the JAX package's fallback)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        w = self.conv3d.weight
+        cout, cin = w.shape[:2]
+        if x.dtype == torch.uint8:
+            if x.shape[1] != 8 * cin:
+                raise ValueError(f"a packed uint8 stem input has {8 * cin} channels, "
+                                 f"not {x.shape[1]}")
+            xp = x.to(dt)  # 0..255, exact in bf16
+            w = w * (1.0 / 255.0)
+        elif any(d % 2 for d in x.shape[2:]):
+            return super().forward(x)
+        else:
+            xp = s2d_pack(x.to(dt).permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
+        if not S2D_CHANNELS_LAST:
+            xp = xp.contiguous()
+        wp = F.pad(w.to(dt), (0, 1, 0, 1, 0, 1)).reshape(cout, cin, 4, 2, 4, 2, 4, 2)
+        wp = wp.permute(0, 3, 5, 7, 1, 2, 4, 6).reshape(cout, 8 * cin, 4, 4, 4)
+        y = F.conv3d(F.pad(xp, (1, 2, 1, 2, 1, 2)), wp).contiguous()
+        return torch.relu(self.bn(y))
 
 
 class InceptionModule(nn.Module):
@@ -66,19 +123,24 @@ class InceptionModule(nn.Module):
 
 
 class InceptionI3d(nn.Module):
-    """I3D encoder to Mixed_4f; module names are the reference keys."""
+    """I3D encoder to Mixed_4f; module names are the reference keys.
+    `s2d_stem` picks StemS2D or the plain Unit3D for Conv3d_1a_7x7 (the
+    same parameters and function)."""
 
-    def __init__(self, compute_dtype=torch.float32, bn_groups=1):
+    def __init__(self, compute_dtype=torch.float32, bn_groups=1, s2d_stem=True):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype, bn_groups=bn_groups)
-        self.Conv3d_1a_7x7 = Unit3D(3, 64, (7, 7, 7), (2, 2, 2), **kw)
+        self.Conv3d_1a_7x7 = (StemS2D if s2d_stem else Unit3D)(3, 64, (7, 7, 7), (2, 2, 2), **kw)
         self.Conv3d_2b_1x1 = Unit3D(64, 64, **kw)
         self.Conv3d_2c_3x3 = Unit3D(64, 192, (3, 3, 3), (2, 1, 1), **kw)
         for name, (cin, oc) in INCEPTION_SPECS.items():
             self.add_module(name, InceptionModule(cin, oc, **kw))
 
     def forward(self, x):
-        """x (B, 3, T, H, W) -> (Mixed_4f, out56, out112)."""
+        """x (B, 3, T, H, W), or the packed uint8 (B, 24, T/2, H/2, W/2)
+        for StemS2D -> (Mixed_4f, out56, out112)."""
+        if x.dtype == torch.uint8 and not isinstance(self.Conv3d_1a_7x7, StemS2D):
+            raise ValueError("packed uint8 input requires the space-to-depth stem")
         out112 = x = self.Conv3d_1a_7x7(x)
         x = max_pool_same_zero_pad(x, (1, 3, 3), (1, 2, 2))
         x = self.Conv3d_2b_1x1(x)

@@ -10,6 +10,7 @@ convolutions cast x and w to the compute type, as the JAX package does.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -57,6 +58,9 @@ class TorchBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        # False while an activation checkpoint recomputes the forward
+        # (`frozen_running_stats`): the step's one update already happened
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
@@ -74,16 +78,32 @@ class TorchBatchNorm(nn.Module):
         else:
             mean_g = xg.mean(dim=(1, 3))
             var_g = (xg - mean_g[:, None, :, None]).square().mean(dim=(1, 3))
-        with torch.no_grad():
-            m = self.momentum
-            unbiased = var_g * (n / max(n - 1, 1))
-            for g in range(G):  # sequential EMA == one update per forward
-                self.running_mean.mul_(1 - m).add_(m * mean_g[g])
-                self.running_var.mul_(1 - m).add_(m * unbiased[g])
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var_g * (n / max(n - 1, 1))
+                for g in range(G):  # sequential EMA == one update per forward
+                    self.running_mean.mul_(1 - m).add_(m * mean_g[g])
+                    self.running_var.mul_(1 - m).add_(m * unbiased[g])
         inv = torch.rsqrt(var_g + self.eps) * self.weight  # (G, C)
         y = (xg - mean_g[:, None, :, None]) * inv[:, None, :, None]
         y = y + self.bias[None, None, :, None]
         return y.reshape(x.shape).to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Every TorchBatchNorm in `module` leaves its running stats alone
+    inside the block: the recompute context of an activation checkpoint,
+    so a rematerialized forward updates them once, as JAX's nn.remat."""
+    bns = [m for m in module.modules() if isinstance(m, TorchBatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 class Dropout3d(nn.Module):

@@ -25,15 +25,23 @@ layouts: `data` (B, T, H, W, 3) uint8 (normalized and flipped on the
 device) or f32 with an `aug_data` of the same layout, `loc_msk`
 (B, T, H, W, 1), `action` (B,), `label_vid` (B,) (1 = labelled),
 optional `row_mask` (B,).
+
+With PICAD_PACKED_PREP=1 (off by default, as in the JAX package) the
+uint8 layout reaches the model PACKED: `s2d_pack_u8` and `flip_packed_w`
+run in uint8 where the batch lies (the card for a CUDA step), and the
+stem folds /255 into its kernel (models/i3d.py StemS2D).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from picad_tpu_torch._device import resolve_device
 from picad_tpu_torch.config import LossConfig
+from picad_tpu_torch.models.i3d import s2d_pack
 from picad_tpu_torch.objectives.losses import weighted_mse_outer
 from picad_tpu_torch.ops.masks import pixelwise_cyclic_variance, pixelwise_gradient
 
@@ -44,11 +52,35 @@ def _to(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a)).to(device, non_blocking=True)
 
 
+# The JAX package's switch, read the same way and off by default
+# (picad_tpu/train/step.py:55-83 records why it is off there).
+_PACKED_PREP = os.environ.get("PICAD_PACKED_PREP", "0") == "1"
+
+s2d_pack_u8 = s2d_pack  # picad_tpu/train/step.py:86: (B, T, H, W, C) -> (B, T/2, H/2, W/2, 8C)
+
+
+def flip_packed_w(p: torch.Tensor, c_raw: int = 3) -> torch.Tensor:
+    """The horizontal flip of the ORIGINAL clip, applied to its packed
+    form: w_orig = 2w + wp, so flip(w_orig) = 2(W/2 - 1 - w) + (1 - wp):
+    reverse the packed W axis and swap the wp phase inside the channels
+    (picad_tpu/train/step.py:96-102)."""
+    B, T2, H2, W2, _ = p.shape
+    pr = p.reshape(B, T2, H2, W2, 2, 2, 2, c_raw)
+    return torch.flip(pr, dims=(3, 6)).reshape(p.shape)
+
+
 def prepare_views(batch, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(data, aug, seg_gt) as f32 on `device`: uint8 clips become /255
-    there and, without an `aug_data`, the flipped view is the W-flip."""
+    """(data, aug, seg_gt) on `device`: uint8 clips become f32 /255 there
+    and, without an `aug_data`, the flipped view is the W-flip.  With
+    `_PACKED_PREP`, a uint8 batch with even T, H, W and no `aug_data`
+    returns the packed uint8 views instead (picad_tpu/train/step.py:
+    105-143)."""
     data = _to(batch["data"], device)
     seg_gt = _to(batch["loc_msk"], device)[..., 0].to(torch.float32)  # (B, T, H, W)
+    if (_PACKED_PREP and batch.get("aug_data") is None and data.dtype == torch.uint8
+            and data.shape[-1] == 3 and all(d % 2 == 0 for d in data.shape[1:4])):
+        p = s2d_pack_u8(data)
+        return p, flip_packed_w(p), seg_gt
     if data.dtype == torch.uint8:
         data = data.to(torch.float32) / 255.0
     aug = batch.get("aug_data")

@@ -513,3 +513,127 @@ def test_train_step_on_card_matches_cpu(card, no_tf32):
 
     res = train_step_card_vs_cpu(seed=1, size=96)
     assert res["ok"], res
+
+
+STEM_RTOL = 1e-2  # bf16, as chip_smoke.py phase 10 states
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_s2d_on_card_matches_plain(card, no_tf32, monkeypatch, channels_last, dtype):
+    """StemS2D against the plain stem on the card, train mode, bn_groups
+    2: the output, dW and the BN weight's gradient (f32 within 1e-4 of
+    max|plain|, bf16 within STEM_RTOL); the packed uint8 branch against
+    the f32 branch in f32."""
+    from picad_tpu_torch.models import i3d
+    from picad_tpu_torch.models.layers import Unit3D
+
+    monkeypatch.setattr(i3d, "S2D_CHANNELS_LAST", channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn((64, 3, 7, 7, 7), generator=gen, device="cuda") * (3 * 343) ** -0.5
+    clip = torch.randint(0, 256, (4, 8, 32, 48, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    x = (clip.float() / 255.0).permute(0, 4, 1, 2, 3)
+    r = torch.randn((4, 64, 4, 16, 24), generator=gen, device="cuda").to(dtype)
+    outs = []
+    for cls in (Unit3D, i3d.StemS2D):
+        m = cls(3, 64, (7, 7, 7), (2, 2, 2), compute_dtype=dtype, bn_groups=2).cuda()
+        with torch.no_grad():
+            m.conv3d.weight.copy_(w)
+        y = m(x)
+        y.backward(r)
+        outs.append((y.detach(), m.conv3d.weight.grad, m.bn.weight.grad))
+    rtol = STEM_RTOL if dtype == torch.bfloat16 else KERNEL_RTOL
+    for got, ref in zip(outs[1], outs[0]):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= rtol * ref.float().abs().max().item(), err
+    # the packed uint8 branch against the f32 branch, in f32 (TF32 off)
+    m = i3d.StemS2D(3, 64, (7, 7, 7), (2, 2, 2)).cuda().eval()
+    with torch.no_grad():
+        m.conv3d.weight.copy_(w)
+        packed = m(i3d.s2d_pack(clip).permute(0, 4, 1, 2, 3))
+        ref = m(x)
+    assert (packed - ref).abs().max() <= KERNEL_RTOL * ref.abs().max()
+
+
+def test_prefetch_loader_on_card_through_pinned_slots(card):
+    """Ten batches through three pinned slots and a side stream: every
+    batch arrives on the card, in order, with its own values, also when
+    the consumer holds them all and the producer refills slots."""
+    from picad_tpu_torch.data.loader import PrefetchLoader
+
+    batches = [{"data": np.full((2, 8, 16, 16, 3), i, np.uint8),
+                "row_mask": np.full((2,), i, np.float32)} for i in range(10)]
+    held = list(PrefetchLoader(iter(batches), prefetch=2))
+    torch.cuda.synchronize()
+    assert len(held) == 10
+    for i, b in enumerate(held):
+        assert b["data"].is_cuda and b["data"].dtype == torch.uint8
+        assert bool((b["data"] == i).all()) and bool((b["row_mask"] == i).all())
+
+
+def _small_cache_and_batchers(card, hw, bs):
+    from picad_tpu_torch.data.dataset import ClipDataset
+    from picad_tpu_torch.data.device_cache import DeviceClipDataset, DeviceVideoCache
+    from picad_tpu_torch.data.loader import SemiSupervisedBatcher
+    from picad_tpu_torch.data.sources import ConcatVideoSource, SyntheticVideoSource
+
+    def src(labeled, seed):
+        return SyntheticVideoSource(4, video_len=24, height=96, width=112,
+                                    labeled_fraction=labeled, seed=seed)
+
+    cache = DeviceVideoCache.build(ConcatVideoSource([src(1.0, 1), src(0.0, 2)]),
+                                   budget_bytes=1 << 30, device=card)
+    kw = dict(batch_size=bs, seed=0, workers=2, process_index=0, process_count=1)
+    meta = SemiSupervisedBatcher(
+        *(DeviceClipDataset(cache, index_offset=o, length=4, train=True, clip_shape=hw)
+          for o in (0, 4)), **kw)
+    host = SemiSupervisedBatcher(
+        *(ClipDataset(src(f, s), train=True, clip_shape=hw, device_prep=True)
+          for f, s in ((1.0, 1), (0.0, 2))), **kw)
+    return cache, meta, host
+
+
+def test_device_cache_on_card_matches_host_batches(card):
+    """The card-assembled batches (assembler on the loader's side stream)
+    equal the host streaming batches bit for bit, over two epochs."""
+    from picad_tpu_torch.data.device_cache import make_assembler_put
+    from picad_tpu_torch.data.loader import PrefetchLoader
+
+    hw = (48, 64)
+    cache, meta, host = _small_cache_and_batchers(card, hw, 4)
+    assert cache.pool_video.is_cuda
+    put = make_assembler_put({"pool_video": cache.pool_video, "pool_mask": cache.pool_mask}, hw)
+    for epoch in (0, 1):
+        dev = list(PrefetchLoader(meta.epoch(epoch), put_fn=put))
+        ref = list(host.epoch(epoch))
+        assert len(dev) == len(ref) > 0
+        for d, h in zip(dev, ref):
+            assert set(d) == set(h)
+            for k in h:
+                assert d[k].is_cuda, k
+                np.testing.assert_array_equal(d[k].cpu().numpy(), h[k], err_msg=k)
+
+
+def test_train_steps_through_both_input_paths_on_card(card):
+    """Two bf16 train steps at 80^2, batch 2, through the device cache
+    and through host streaming: finite losses, K1 and K2 once a step."""
+    from picad_tpu_torch.config import LossConfig
+    from picad_tpu_torch.data.device_cache import make_assembler_put
+    from picad_tpu_torch.data.loader import PrefetchLoader
+    from picad_tpu_torch.train.state import create_train_state
+    from picad_tpu_torch.train.step import make_train_step
+
+    hw = (80, 80)
+    cache, meta, host = _small_cache_and_batchers(card, hw, 2)
+    put = make_assembler_put({"pool_video": cache.pool_video, "pool_mask": cache.pool_mask}, hw)
+    step = make_train_step(LossConfig(bv=True, n_frames=5, wt_cons=0.1, thresh_epoch=11))
+    for loader in (PrefetchLoader(meta.epoch(0), put_fn=put), PrefetchLoader(host.epoch(0))):
+        state = create_train_state(seed=0, device=card, bn_groups=2)
+        k1, k2 = composite_convt.launches, composite_convt_bwd.launches
+        it = iter(loader)
+        for _ in range(2):
+            state, metrics = step(state, next(it), 12.0, 0.5)
+            assert all(np.isfinite(float(v)) for v in metrics.values())
+        it.close()
+        assert (composite_convt.launches - k1, composite_convt_bwd.launches - k2) == (2, 2)

@@ -11,6 +11,9 @@ import torch
 
 from picad_tpu_torch._device import resolve_device
 from picad_tpu_torch.config import LossConfig
+from picad_tpu_torch.data.device_cache import DeviceVideoCache, make_assembler_put
+from picad_tpu_torch.data.loader import PrefetchLoader
+from picad_tpu_torch.data.sources import SyntheticVideoSource
 from picad_tpu_torch.models.capsules import CapsNet, build_capsnet
 from picad_tpu_torch.serve.runner import ServingModel
 from picad_tpu_torch.train.state import create_train_state
@@ -41,8 +44,8 @@ assert out.shape == (1, 4, 6, 8) and composite_convt.launches == 0
 assert not _build._LIBS
 
 foreign = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "picad_tpu"))
-assert not foreign, foreign
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "picad_tpu", "cv2"))
+assert not foreign, foreign  # cv2 too: the card's machine has no OpenCV
 print(len(names))
 """
 
@@ -73,6 +76,14 @@ def test_entry_points_default_to_the_card():
         make_train_step(LossConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_val_step(LossConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceVideoCache.build(SyntheticVideoSource(1, video_len=4, height=96, width=96))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PrefetchLoader(iter([]))
+    pools = {"pool_video": torch.zeros(1, 8, 8, 3, dtype=torch.uint8),
+             "pool_mask": torch.zeros(1, 8, 8, 1, dtype=torch.uint8)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_assembler_put(pools, (8, 8))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
