@@ -100,6 +100,32 @@ failure exits non-zero (no phase is caught and passed over):
             step; K1 1, K3 2 a serving batch), and `correct`: the bench's
             check of its own output against a CPU f32 reference
             (picad_tpu_torch/bench/check.py).
+ 13 trainer the train and evaluate CLIs' entry points at full width,
+            bf16, 224^2 (picad_tpu_torch/cli): train_ucf101.main with
+            --synthetic --bs 8 --epochs 2 --pf 2 --wt_cons 0.1 --bv
+            --n_frames 5 --thresh_epoch 1 --device_cache_gb 2 and
+            TRAINER_VIDEOS synthetic videos (4 steps an epoch, 4 val
+            videos; the count has no flag, so the smoke sets it in the
+            CLIs' argv -> config mapping), with torch's TF32 defaults back
+            (phase 4 turns TF32 off); train_ucf101.main again with
+            --epochs 3 --resume best_model_train_loss_2 (or val), which
+            must restore the epoch, the LR and the scheduler counters and
+            run epoch 3 alone, its train steps under
+            torch.cuda.set_sync_debug_mode("warn"), the host
+            synchronisations counted by site (the metric reads at the
+            --pf boundaries); evaluate_ucf101.main --synthetic --split val
+            sweeps and prunes the val checkpoints of both runs (f32); then
+            train_jhmdb.main for one epoch (21 classes) and
+            evaluate_jhmdb.main on its train checkpoint.  Each CLI call
+            with the launch counts set to 0 just before and read just
+            after, and each epoch's train steps and validation read apart:
+            K1-K6 (1, 1, 2, 2, 2, 4) a train step, K1 once and K3 twice a
+            validation batch and a padded eval batch, nothing else.  Each
+            epoch's wall and clips/s, the checkpoint's bytes and its save
+            and restore seconds, eval seconds a checkpoint and the
+            surviving directories; fails on a non-finite loss, a wrong
+            launch count, a resume mismatch or more than two checkpoints
+            left after pruning.
 
 The timing and profiling helpers (cuda_ms, profile_call, the launch
 counters, nvidia_smi_line) are picad_tpu_torch/utils/profiling.py's, which
@@ -114,6 +140,7 @@ exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -121,21 +148,33 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from picad_tpu_torch.bench import Lengths, load_config, run_cell
-from picad_tpu_torch.bench.trace import KERNELS, SERVE_LAUNCHES, TRAIN_LAUNCHES
+from picad_tpu_torch.bench.trace import (
+    KERNELS,
+    SERVE_LAUNCHES,
+    TRAIN_LAUNCHES,
+    count_sync_warnings,
+)
 from picad_tpu_torch.bench.train import (
     cache_pipeline,
     epochs_forever,
     stream_pipeline,
     synthetic_batch,
 )
+from picad_tpu_torch.checkpoint.manager import CheckpointIO
+from picad_tpu_torch.cli import common as cli_common
+from picad_tpu_torch.cli import evaluate_jhmdb, evaluate_ucf101, train_jhmdb, train_ucf101
 from picad_tpu_torch.config import LossConfig
+from picad_tpu_torch.data.dataset import EvalVideoDataset
 from picad_tpu_torch.data.loader import PrefetchLoader
+from picad_tpu_torch.data.sources import SyntheticVideoSource
+from picad_tpu_torch.eval.clips import chunk_video_into_clips
 from picad_tpu_torch.models import i3d, layers
 from picad_tpu_torch.models.capsules import build_capsnet
 from picad_tpu_torch.ops import _build, tapconv
@@ -150,6 +189,7 @@ from picad_tpu_torch.ops.fused_head_kernel import (
     composite_convt_plain,
 )
 from picad_tpu_torch.serve.runner import ServingModel
+from picad_tpu_torch.train.loop import Trainer
 from picad_tpu_torch.train.state import create_train_state
 from picad_tpu_torch.train.step import make_train_step
 from picad_tpu_torch.utils.profiling import (
@@ -204,6 +244,11 @@ STEM_BATCH = {"train": 16, "serve": 14}  # [data; aug] of batch 8; the serving c
 STEM_RTOL = 1e-2  # of max|plain|: bf16 products summed in another order, rounded to bf16
 STEM_CHOICE_SLACK = 1.10  # the default stem's time over the fastest's, at most
 DATA_STEPS = 6  # train steps through each input path in phase 11
+# phase 13: the train CLI's flags, and synthetic_num_videos (no flag)
+TRAINER_ARGV = ["--synthetic", "--bs", "8", "--pf", "2", "--wt_cons", "0.1", "--bv",
+                "--n_frames", "5", "--thresh_epoch", "1", "--device_cache_gb", "2"]
+TRAINER_VIDEOS = 16  # 4 steps an epoch at batch 8, max(16 // 4, 1) = 4 val videos
+EVAL_VIDEOS = 8  # the evaluate CLIs' --synthetic source (cli/evaluate_*.py)
 
 
 def phase(n, name, msg):
@@ -727,6 +772,210 @@ BENCH_LINE = {"ucf101_train_bs8": ("train_clips_per_s", "e2e_clips_per_s", "mfu"
 MAY_BE_ZERO = ("host_syncs_per_step", "gc_ms_per_step")  # none found is a valid reading
 
 
+@contextlib.contextmanager
+def _counted_trainers(sync_probe_epoch: int | None = None):
+    """Within: each Trainer's train epochs and validations append the
+    launches they made (the counts read before and after) to
+    `trainer.launches`, and `restore` records its seconds and what it
+    restored in `trainer.restored`.  The train steps of epoch
+    `sync_probe_epoch` run under torch.cuda.set_sync_debug_mode("warn"),
+    their host synchronisations counted by site into `trainer.sync_sites`.
+    The CLIs' argv -> config mapping gives the synthetic backend
+    TRAINER_VIDEOS videos (the count has no flag)."""
+    train_epoch, validate, restore = Trainer.train_epoch, Trainer.validate, Trainer.restore
+    to_config = cli_common.args_to_config
+
+    def counts_since(before: dict) -> dict:
+        torch.cuda.synchronize()
+        return {k: v - before[k] for k, v in read_launches().items()}
+
+    def counted_train_epoch(self, e):
+        torch.cuda.synchronize()
+        before = read_launches()
+        if e == sync_probe_epoch:
+            out = []
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _, self.sync_sites = count_sync_warnings(
+                    lambda: out.append(train_epoch(self, e)), 1)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            loss = out[0]
+        else:
+            loss = train_epoch(self, e)
+        self.__dict__.setdefault("launches", []).append(
+            {"epoch": e, "train": counts_since(before), "steps": self.epoch_stats[-1]["steps"]})
+        return loss
+
+    def counted_validate(self, e):
+        before = read_launches()
+        loss = validate(self, e)
+        self.launches[-1].update(val=counts_since(before),
+                                 val_batches=-(-len(self.val_dataset) // self.cfg.bs))
+        return loss
+
+    def timed_restore(self, path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = restore(self, path)
+        torch.cuda.synchronize()
+        self.restored = {"seconds": time.perf_counter() - t0, "next_epoch": start,
+                         "lr": self.state.learning_rate(), "best": self.scheduler.best,
+                         "bad": self.scheduler.num_bad_epochs,
+                         "cooldown": self.scheduler.cooldown_counter}
+        return start
+
+    def few_videos(args, dataset):
+        cfg = to_config(args, dataset)
+        cfg.data.synthetic_num_videos = TRAINER_VIDEOS
+        return cfg
+
+    Trainer.train_epoch, Trainer.validate, Trainer.restore = (
+        counted_train_epoch, counted_validate, timed_restore)
+    cli_common.args_to_config = few_videos
+    try:
+        yield
+    finally:
+        Trainer.train_epoch, Trainer.validate, Trainer.restore = train_epoch, validate, restore
+        cli_common.args_to_config = to_config
+
+
+def _train_cli(cli, argv: list, step_want: dict, batch_want: dict,
+               sync_probe_epoch: int | None = None) -> tuple[Trainer, list]:
+    """One train CLI run, `cli.main(argv)`, with the launch counts set to 0
+    just before and read just after -> (its Trainer, the epoch rows).
+    Fails unless every epoch made `step_want` launches a train step and
+    `batch_want` a validation batch, and nothing else launched."""
+    with _counted_trainers(sync_probe_epoch):
+        torch.cuda.synchronize()
+        reset_launches()
+        tr = cli.main(argv)
+        torch.cuda.synchronize()
+        total = read_launches()
+    rows = _check_epochs(tr, step_want, batch_want)
+    steps = sum(c["steps"] for c in tr.launches)
+    batches = sum(c["val_batches"] for c in tr.launches)
+    want = {k: steps * step_want[k] + batches * batch_want[k] for k in step_want}
+    if total != want:
+        raise AssertionError(f"{cli.__name__} {argv}: launches {total}, want {want} "
+                             f"({steps} train steps, {batches} validation batches)")
+    return tr, rows
+
+
+def _check_epochs(tr: Trainer, step_want: dict, batch_want: dict) -> list:
+    """Each epoch run: finite losses (metrics.jsonl), K1-K6 `step_want`
+    a train step and `batch_want` a validation batch -> the epoch rows."""
+    with open(os.path.join(tr.save_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    values = [v for r in records for k, v in r.items() if k not in ("tag", "step", "time")]
+    rows = []
+    for stats, counts in zip(tr.epoch_stats, tr.launches):
+        n, nb = counts["steps"], counts["val_batches"]
+        per_step = {k: v / n for k, v in counts["train"].items()}
+        per_batch = {k: v / nb for k, v in counts["val"].items()}
+        if per_step != step_want or per_batch != batch_want:
+            raise AssertionError(f"trainer epoch {stats['epoch']}: launches a step {per_step} "
+                                 f"(want {step_want}), a val batch {per_batch} "
+                                 f"(want {batch_want})")
+        rows.append(dict(stats, launches_a_step=per_step, launches_a_val_batch=per_batch))
+    if not (values and np.isfinite(values).all() and len(rows) == len(tr.epoch_stats) > 0):
+        raise AssertionError(f"trainer: a non-finite logged metric in {records}")
+    return rows
+
+
+def _eval_batches(n_classes: int) -> int:
+    """Padded clip batches (of 14) the evaluate CLIs' synthetic set takes
+    a checkpoint."""
+    ds = EvalVideoDataset(SyntheticVideoSource(EVAL_VIDEOS, num_classes=n_classes, seed=47))
+    return sum(-(-chunk_video_into_clips(v, m)[0].shape[0] // 14) for v, m, _ in ds)
+
+
+def _sweep(cli, argv: list, ckpt_dir: str, split: str, n_classes: int) -> dict:
+    """One evaluate CLI run, launch counts set to 0 just before and read
+    just after: K1 once and K3 twice a padded batch, nothing else."""
+    before = sorted(d for d in os.listdir(ckpt_dir) if d.startswith(f"best_model_{split}"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    nb = _eval_batches(n_classes) * len(results)
+    want = {"composite_convt": nb, "composite_convt_bwd": 0, "bn_stats": 0,
+            "tap_conv_fwd": 2 * nb, "tap_conv_dx": 0, "tap_conv_dw": 0}
+    after = sorted(d for d in os.listdir(ckpt_dir) if d.startswith(f"best_model_{split}"))
+    if launches != want or len(results) != len(before) or not 0 < len(after) <= 2:
+        raise AssertionError(f"sweep {argv}: launches {launches} (want {want}), "
+                             f"{len(results)} of {before} evaluated, left {after}")
+    return {"checkpoints": before, "surviving": after, "padded_batches": nb,
+            "launches_a_batch": {k: v / nb for k, v in launches.items() if v},
+            "seconds_a_checkpoint": seconds / len(results),
+            "summaries": {os.path.basename(p): {k: r[k] for k in
+                                                ("accuracy", "fmAP@0.5", "vmAP@0.5")}
+                          for p, r in results.items()}}
+
+
+def trainer_phase(big_bn: int, tf32_defaults: tuple) -> dict:
+    """Phase 13: the train and evaluate CLIs' path on the card (see the
+    module docstring)."""
+    step_want = {"composite_convt": 1, "composite_convt_bwd": 1, "bn_stats": big_bn,
+                 "tap_conv_fwd": 2, "tap_conv_dx": 2, "tap_conv_dw": 2}
+    batch_want = {"composite_convt": 1, "composite_convt_bwd": 0, "bn_stats": 0,
+                  "tap_conv_fwd": 2, "tap_conv_dx": 0, "tap_conv_dw": 0}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    res = {"tf32_defaults": {"matmul": tf32_defaults[0], "cudnn": tf32_defaults[1]}}
+    try:
+        first, res["ucf101"] = _train_cli(
+            train_ucf101, TRAINER_ARGV + ["--epochs", "2", "--save_root", root,
+                                          "--exp_id", "ucf101"], step_want, batch_want)
+        ckpt = next((os.path.join(first.save_dir, f"best_model_{tag}_loss_2")
+                     for tag in ("train", "val")
+                     if os.path.isdir(os.path.join(first.save_dir, f"best_model_{tag}_loss_2"))),
+                    None)
+        if ckpt is None:
+            raise AssertionError(f"trainer: no epoch-2 checkpoint in {os.listdir(first.save_dir)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = CheckpointIO().save(os.path.join(root, "timed_save"), first.state)
+        save_s = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(root, "timed_save"))
+
+        second, res["ucf101_resumed"] = _train_cli(
+            train_ucf101, TRAINER_ARGV + ["--epochs", "3", "--save_root", root,
+                                          "--exp_id", "ucf101_resumed", "--resume", ckpt],
+            step_want, batch_want, sync_probe_epoch=3)
+        got = {k: v for k, v in second.restored.items() if k != "seconds"}
+        want = {"next_epoch": 3, "lr": first.state.learning_rate(),
+                "best": first.scheduler.best, "bad": first.scheduler.num_bad_epochs,
+                "cooldown": first.scheduler.cooldown_counter}
+        if got != want or [r["epoch"] for r in res["ucf101_resumed"]] != [3]:
+            raise AssertionError(f"trainer resume: restored {got}, want {want}; epochs run "
+                                 f"{[r['epoch'] for r in res['ucf101_resumed']]}, want [3]")
+        res["sync_sites_epoch_3"] = second.sync_sites
+        res["checkpoint"] = {"path": os.path.basename(ckpt), "bytes": nbytes, "save_s": save_s,
+                             "restore_s": second.restored["seconds"]}
+        resumed_val = os.path.join(second.save_dir, "best_model_val_loss_3")
+        if os.path.isdir(resumed_val):  # two runs' val checkpoints in one sweep
+            shutil.copytree(resumed_val, os.path.join(first.save_dir, "best_model_val_loss_3"))
+        res["evaluate_ucf101"] = _sweep(
+            evaluate_ucf101, ["--ckpt", first.save_dir, "--synthetic", "--split", "val"],
+            first.save_dir, "val", 24)
+
+        jhmdb, res["jhmdb"] = _train_cli(
+            train_jhmdb, TRAINER_ARGV + ["--epochs", "1", "--save_root", root,
+                                         "--exp_id", "jhmdb"], step_want, batch_want)
+        res["evaluate_jhmdb"] = _sweep(
+            evaluate_jhmdb, ["--ckpt", jhmdb.save_dir, "--synthetic", "--split", "train"],
+            jhmdb.save_dir, "train", 21)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def bench_phase(seed: int) -> dict:
     """Phase 12: each bench cell at BENCH_LENGTHS with its traced run ->
     its result line.  Every metric finite and positive (host
@@ -757,6 +1006,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; no result", file=sys.stderr)
         return 1
     results: dict = {}
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
     # 1 device
     smi = nvidia_smi_line()
@@ -1006,6 +1256,28 @@ def main() -> int:
                         if k in r["check"]["limits"]) + "; launches a step or batch "
             + ", ".join(f"{k}_launches {r[k + '_launches']:g}" for k in sorted(
                 KERNELS[n] for n in BENCH_WANT[cell])) + f" | {smi}")
+
+    # 13 the train and evaluate CLIs' path
+    torch.cuda.empty_cache()
+    results["trainer"] = trn = trainer_phase(tr["big_bn_per_step"], tf32_defaults)
+    for run in ("ucf101", "ucf101_resumed", "jhmdb"):
+        phase(13, "trainer", f"{run}: " + "; ".join(
+            f"epoch {r['epoch']}: {r['steps']} steps in {r['seconds']:.2f} s = "
+            f"{r['clips_per_s']:.2f} clips/s, loss {r['loss']:.4f}" for r in trn[run])
+            + f"; launches a step {trn[run][0]['launches_a_step']}, a val batch "
+            f"{trn[run][0]['launches_a_val_batch']} | {smi}")
+    c = trn["checkpoint"]
+    phase(13, "trainer", f"checkpoint {c['path']}: {c['bytes']} bytes, save {c['save_s']:.3f} s, "
+          f"restore {c['restore_s']:.3f} s; resumed at epoch 3 with the LR and scheduler "
+          f"counters of the unbroken run; host synchronisations in epoch 3's train steps "
+          f"(4 steps, --pf 2) by site {trn['sync_sites_epoch_3']}; TF32 defaults "
+          f"{trn['tf32_defaults']}; phase {trn['seconds']:.1f} s | {smi}")
+    for cli in ("evaluate_ucf101", "evaluate_jhmdb"):
+        e = trn[cli]
+        phase(13, "trainer", f"{cli} (f32): {len(e['checkpoints'])} checkpoint(s) "
+              f"{e['checkpoints']}, {e['padded_batches']} padded batches, "
+              f"{e['seconds_a_checkpoint']:.2f} s a checkpoint, launches a batch "
+              f"{e['launches_a_batch']}; {e['summaries']}; left {e['surviving']} | {smi}")
 
     k1, k2, k6 = checks[2], bwd[0], stats[0]  # bf16 at the train shapes
     k35 = {conv: next(c for c in taps if "kernel_ms" in c["tap_conv_fwd"] and c["co"] == co)

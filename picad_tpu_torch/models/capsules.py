@@ -274,6 +274,7 @@ def build_capsnet(
     state_dict=None,
     *,
     num_classes: int = 24,
+    pose_size: int = 4,
     compute_dtype: torch.dtype | None = None,
     fused_head: bool = True,
     seed: int = 0,
@@ -295,6 +296,7 @@ def build_capsnet(
     dev = resolve_device(device)
     model = CapsNet(
         num_classes,
+        pose_size,
         compute_dtype=compute_dtype or default_compute_dtype(dev),
         fused_head=fused_head,
         bn_groups=bn_groups,

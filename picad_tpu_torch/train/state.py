@@ -30,12 +30,37 @@ class TrainState:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def learning_rate(self) -> float:
+        return float(self.optimizer.param_groups[0]["lr"])
+
+    def with_learning_rate(self, lr: float) -> "TrainState":
+        """Set the live learning rate of every parameter group."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        return self
+
+    def with_scheduler(self, scheduler) -> "TrainState":
+        """Mirror a ReduceLROnPlateau's counters into the state."""
+        self.sched_best = float(scheduler.best)
+        self.sched_bad = int(scheduler.num_bad_epochs)
+        self.sched_cooldown = int(scheduler.cooldown_counter)
+        return self
+
+    def load_scheduler(self, scheduler) -> None:
+        """Restore a ReduceLROnPlateau's counters and live LR from the
+        state (call after a checkpoint restore)."""
+        scheduler.best = self.sched_best
+        scheduler.num_bad_epochs = self.sched_bad
+        scheduler.cooldown_counter = self.sched_cooldown
+        scheduler.lr = self.learning_rate()
+
 
 def create_train_state(
     *,
     state_dict=None,
     lr: float = 1e-4,
     weight_decay: float = 0.0,
+    eps: float = 1e-6,
     seed: int = 0,
     device=None,
     **model_kwargs,
@@ -44,10 +69,10 @@ def create_train_state(
     train-mode CapsNet of `build_train_capsnet` (weights from
     `state_dict` or seeded with `seed`; `model_kwargs` are its options,
     e.g. bn_groups, dropout_rate, compute_dtype), the optimizer of
-    `make_optimizer`, and the dropout generator, seeded with `seed` on
-    the same device."""
+    `make_optimizer` (Adam with `eps`; AdamW with `weight_decay`), and
+    the dropout generator, seeded with `seed` on the same device."""
     dev = resolve_device(device)
     model = build_train_capsnet(state_dict, seed=seed, device=dev, **model_kwargs)
-    optimizer = make_optimizer(model.parameters(), lr, weight_decay=weight_decay)
+    optimizer = make_optimizer(model.parameters(), lr, eps=eps, weight_decay=weight_decay)
     generator = torch.Generator(device=dev).manual_seed(seed)
     return TrainState(model, optimizer, generator)

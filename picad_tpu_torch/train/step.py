@@ -192,7 +192,15 @@ def _labels(batch, device):
     return action, flags, row_mask
 
 
-def make_train_step(loss_cfg: LossConfig, *, device=None):
+def global_grad_norm(parameters) -> torch.Tensor:
+    """The global L2 norm of the parameters' gradients (optax.global_norm
+    of the JAX package's gradient tree), as a 0-d f32 tensor on their
+    device: no host synchronisation."""
+    norms = [torch.linalg.vector_norm(p.grad.float()) for p in parameters if p.grad is not None]
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def make_train_step(loss_cfg: LossConfig, *, device=None, grad_metrics: bool = False):
     """The train step `train_step(state, batch, epoch, wt_ramp) -> (state,
     metrics)` on `device` (default: the CUDA card), where the batch is
     moved.  It folds both views into one forward when the state's model
@@ -200,7 +208,12 @@ def make_train_step(loss_cfg: LossConfig, *, device=None):
     state's model, optimizer and generator in place and returns the JAX
     step's metrics (detached 0-d tensors): loss, loss_seg, loss_cls,
     loss_consistency, acc.  The gradients stay in the parameters' `.grad`
-    after the step."""
+    after the step.
+
+    `grad_metrics` adds `grad_norm`, the global L2 of the raw gradients
+    (picad_tpu/train/step.py:192-202, the on-device half of the
+    reference's `wandb.watch(model)`, main_jhmdb.py:422).  Off by
+    default, and then the step launches what it launched before."""
     dev = resolve_device(device)
     if loss_cfg.loc_loss not in _LOC_LOSS:
         raise ValueError(f"unknown loc_loss {loss_cfg.loc_loss!r}")
@@ -237,6 +250,8 @@ def make_train_step(loss_cfg: LossConfig, *, device=None):
         total, metrics = compute_losses(output, flip_op, scores, seg_gt, action, flags,
                                         row_mask, loss_cfg, wt_ramp)
         total.backward()
+        if grad_metrics:
+            metrics["grad_norm"] = global_grad_norm(model.parameters())
         optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}

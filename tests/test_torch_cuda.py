@@ -670,3 +670,84 @@ def test_bench_check_calls_the_control_wrong_on_card(card, cell):
     sound, ctl = (fn(load_config(), 0, n, control) for control in (False, True))
     assert sound["correct"], sound
     assert not ctl["correct"], ctl
+
+
+def _card_trainer(card, save_root, epochs: int, exp_id: str):
+    """The train CLI's path on the card at the bench's widths: 224^2,
+    batch 8, bf16, the device cache, 16 synthetic videos (4 steps an
+    epoch, 4 val videos)."""
+    from picad_tpu_torch.cli.common import args_to_config, build_parser, build_train_datasets
+    from picad_tpu_torch.train.loop import Trainer
+
+    args = build_parser("ucf101").parse_args(
+        ["--synthetic", "--bs", "8", "--epochs", str(epochs), "--pf", "2", "--wt_cons", "0.1",
+         "--bv", "--n_frames", "5", "--thresh_epoch", "1", "--device_cache_gb", "2",
+         "--save_root", str(save_root), "--exp_id", exp_id])
+    cfg = args_to_config(args, "ucf101")
+    cfg.data.synthetic_num_videos = 16
+    lab, unl, val = build_train_datasets(cfg, device=card)
+    assert lab.cache.pool_video.is_cuda  # the card-resident video cache
+    return Trainer(cfg, labeled_dataset=lab, unlabeled_dataset=unl, val_dataset=val, device=card)
+
+
+def test_trainer_fits_and_resumes_on_card(card, tmp_path):
+    """2 epochs, then a resume for a third: K1-K6 launched (1, 1, 2, 2, 2,
+    4) a train step and K1 once, K3 twice a validation batch; finite
+    logged losses; the resumed run starts at epoch 3 with the LR and the
+    scheduler counters of the first."""
+    import json
+    import os
+
+    from picad_tpu_torch.utils.profiling import read_launches, reset_launches
+
+    first = _card_trainer(card, tmp_path, 2, "first")
+    reset_launches()
+    first.fit()
+    steps, val_batches = 8, 2  # 2 epochs of 4 steps and one val batch
+    assert read_launches() == {"composite_convt": steps + val_batches,
+                               "composite_convt_bwd": steps, "bn_stats": 4 * steps,
+                               "tap_conv_fwd": 2 * (steps + val_batches),
+                               "tap_conv_dx": 2 * steps, "tap_conv_dw": 2 * steps}
+    ckpt = next(os.path.join(first.save_dir, f"best_model_{t}_loss_2") for t in ("train", "val")
+                if os.path.isdir(os.path.join(first.save_dir, f"best_model_{t}_loss_2")))
+    second = _card_trainer(card, tmp_path, 3, "second")
+    assert second.restore(ckpt) == 3
+    assert second.state.learning_rate() == first.state.learning_rate()
+    assert (second.scheduler.best, second.scheduler.num_bad_epochs) == \
+        (first.scheduler.best, first.scheduler.num_bad_epochs)
+    second.fit(3)
+    for tr in (first, second):
+        with open(os.path.join(tr.save_dir, "metrics.jsonl")) as f:
+            losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+        assert losses and np.isfinite(losses).all()
+    assert [s["epoch"] for s in second.epoch_stats] == [3]
+
+
+def test_sweep_checkpoints_on_card(card, tmp_path):
+    """The f32 sweep on the card: one eval model loaded with each
+    checkpoint; K1 once and K3 twice a padded clip batch, nothing else."""
+    import os
+
+    from picad_tpu_torch.checkpoint.manager import CheckpointIO
+    from picad_tpu_torch.data.dataset import EvalVideoDataset
+    from picad_tpu_torch.data.sources import SyntheticVideoSource
+    from picad_tpu_torch.eval.clips import chunk_video_into_clips
+    from picad_tpu_torch.eval.runner import sweep_checkpoints
+    from picad_tpu_torch.train.state import create_train_state
+    from picad_tpu_torch.utils.profiling import read_launches, reset_launches
+
+    state = create_train_state(seed=0, device=card, bn_groups=2)
+    for epoch in (1, 2):
+        CheckpointIO().save(str(tmp_path / f"best_model_train_loss_{epoch}"), state)
+    ds = EvalVideoDataset(SyntheticVideoSource(2, num_classes=24, seed=5))
+    batches = sum(-(-chunk_video_into_clips(v, m)[0].shape[0] // 14) for v, m, _ in ds)
+    reset_launches()
+    results = sweep_checkpoints(str(tmp_path), ds, split="train", nan_safe=True, device=card)
+    n = 2 * batches
+    assert read_launches() == {"composite_convt": n, "composite_convt_bwd": 0, "bn_stats": 0,
+                               "tap_conv_fwd": 2 * n, "tap_conv_dx": 0, "tap_conv_dw": 0}
+    assert len(results) == 2
+    # the same weights twice: the same summary, and the first kept
+    a, b = results.values()
+    np.testing.assert_array_equal(a["fmAP"], b["fmAP"])
+    assert sorted(os.listdir(tmp_path)) == ["best_model_train_loss_1"]

@@ -10,12 +10,15 @@ import pytest
 import torch
 
 from picad_tpu_torch._device import resolve_device
-from picad_tpu_torch.config import LossConfig
+from picad_tpu_torch.cli import evaluate_jhmdb, evaluate_ucf101, train_jhmdb, train_ucf101
+from picad_tpu_torch.config import LossConfig, TrainConfig
 from picad_tpu_torch.data.device_cache import DeviceVideoCache, make_assembler_put
 from picad_tpu_torch.data.loader import PrefetchLoader
 from picad_tpu_torch.data.sources import SyntheticVideoSource
+from picad_tpu_torch.eval.runner import sweep_checkpoints
 from picad_tpu_torch.models.capsules import CapsNet, build_capsnet
 from picad_tpu_torch.serve.runner import ServingModel
+from picad_tpu_torch.train.loop import Trainer
 from picad_tpu_torch.train.state import create_train_state
 from picad_tpu_torch.train.step import make_train_step, make_val_step
 
@@ -42,6 +45,17 @@ from picad_tpu_torch.ops.fused_head_kernel import composite_convt
 out = composite_convt(torch.zeros(1, 2, 3, 4, 8), torch.zeros(1, 5, 5, 5, 8))
 assert out.shape == (1, 4, 6, 8) and composite_convt.launches == 0
 assert not _build._LIBS
+
+trainer_slice = {
+    "picad_tpu_torch.config", "picad_tpu_torch.objectives.ramp_ups",
+    "picad_tpu_torch.train.state", "picad_tpu_torch.train.step",
+    "picad_tpu_torch.utils.logging", "picad_tpu_torch.checkpoint.manager",
+    "picad_tpu_torch.eval.metrics", "picad_tpu_torch.eval.engine",
+    "picad_tpu_torch.eval.runner", "picad_tpu_torch.train.loop",
+    "picad_tpu_torch.cli.common", "picad_tpu_torch.cli.train_ucf101",
+    "picad_tpu_torch.cli.train_jhmdb", "picad_tpu_torch.cli.evaluate_ucf101",
+    "picad_tpu_torch.cli.evaluate_jhmdb"}
+assert trainer_slice <= set(names), trainer_slice - set(names)  # imported above
 
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "picad_tpu", "cv2"))
@@ -84,6 +98,17 @@ def test_entry_points_default_to_the_card():
              "pool_mask": torch.zeros(1, 8, 8, 1, dtype=torch.uint8)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_assembler_put(pools, (8, 8))
+    cfg = TrainConfig(bs=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, labeled_dataset=None, unlabeled_dataset=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep_checkpoints(".", [])
+    for cli in (train_ucf101, train_jhmdb):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["--synthetic", "--bs", "2"])
+    for cli in (evaluate_ucf101, evaluate_jhmdb):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["--ckpt", ".", "--synthetic"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
