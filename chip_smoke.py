@@ -126,6 +126,32 @@ failure exits non-zero (no phase is caught and passed over):
             surviving directories; fails on a non-finite loss, a wrong
             launch count, a resume mismatch or more than two checkpoints
             left after pruning.
+ 14 data-parallel  the port's data-parallel path (parallel/mesh.py) on
+            the one card.  (a) In a process of its own, under torch's
+            deterministic algorithms: DP_STEPS bench-configuration bf16
+            steps with a one-rank NCCL group (every collective runs)
+            against the same steps without a group, and those again: bit
+            for bit where the runs without a group are, else the first
+            forward bit for bit and the first step's gradients within
+            DP_NOISE_K times the runs without a group's own relative L2
+            gap; the operations without a deterministic form, one
+            profiled step each way, the gradient average's ms.  (b)
+            DP_WORLD gloo ranks on cuda:0 (NCCL refuses two ranks on one
+            card), global batch TRAIN_BS: DP_STEPS bf16 steps with the
+            same losses and parameters on every rank, K1-K6's launches on
+            each rank, the rank step and the gloo gradient all-reduce;
+            then an f32 step at 96^2 on phase 7's batch inside phase 7's
+            noise band of its card step; then train_ucf101.main
+            --num_devices DP_WORLD with both ranks on cuda:0 (`devices`)
+            and phase 13's flags for one epoch, and again with --resume
+            for epoch 2: each rank's launches counted in its own process,
+            the same losses, parameters and run directory on every rank,
+            one writer, and each rank resuming the first run's state and
+            its own dropout stream.  (c) --eval_dp 2 with both replicas on cuda:0:
+            make_sharded_forward bit for bit one replica on the same
+            slices (cuDNN deterministic), and evaluate_ucf101.main
+            --eval_dp 2 against --eval_dp 1 on one checkpoint.  Launch
+            counts set to 0 just before and read just after each part.
 
 The timing and profiling helpers (cuda_ms, profile_call, the launch
 counters, nvidia_smi_line) are picad_tpu_torch/utils/profiling.py's, which
@@ -141,6 +167,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
+import hashlib
 import itertools
 import json
 import os
@@ -176,6 +204,7 @@ from picad_tpu_torch.data.loader import PrefetchLoader
 from picad_tpu_torch.data.sources import SyntheticVideoSource
 from picad_tpu_torch.eval.clips import chunk_video_into_clips
 from picad_tpu_torch.models import i3d, layers
+from picad_tpu_torch.eval.runner import make_eval_fn, make_padded_forward, make_sharded_forward
 from picad_tpu_torch.models.capsules import build_capsnet
 from picad_tpu_torch.ops import _build, tapconv
 from picad_tpu_torch.ops import fused_head_kernel as fhk
@@ -188,6 +217,7 @@ from picad_tpu_torch.ops.fused_head_kernel import (
     composite_convt_library,
     composite_convt_plain,
 )
+from picad_tpu_torch.parallel import mesh
 from picad_tpu_torch.serve.runner import ServingModel
 from picad_tpu_torch.train.loop import Trainer
 from picad_tpu_torch.train.state import create_train_state
@@ -504,62 +534,83 @@ def _rel_l2(a: dict, ref: dict, names) -> float:
     return (num / sum(float(ref[n].square().sum()) for n in names)) ** 0.5
 
 
-def train_step_card_vs_cpu(seed: int = 1, size: int = 96) -> dict:
-    """Phase 7: one f32 train step at size^2, batch 2, with every BN on
-    K6 (one-pass threshold 0), TF32 off: the card against the CPU, within
-    the CPU's own noise band (see NOISE_MOVE)."""
+def f32_batch(seed: int, size: int) -> dict:
+    """Phase 7's batch: 2 rows of size^2 from `seed`."""
+    return synthetic_batch(np.random.default_rng(seed), 2, (size, size))
+
+
+@contextlib.contextmanager
+def f32_exact():
+    """Every BN on K6 (one-pass threshold 0) and TF32 off, as phase 7."""
     saved = (layers.BN_ONEPASS_MIN, torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     layers.BN_ONEPASS_MIN = 0
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        batch = synthetic_batch(np.random.default_rng(seed), 2, (size, size))
-        reset_launches()
-        m_card, g_card, s_card = _f32_step("cuda", seed, batch)
-        launches = read_launches()
-        m_cpu, g_cpu, s_cpu = _f32_step("cpu", seed, batch)
-        draws = [_f32_step("cpu", seed, batch, move_seed=k) for k in range(1, N_DRAWS + 1)]
+        yield
     finally:
         (layers.BN_ONEPASS_MIN, torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def within_band(got: tuple, ref: tuple, draws: list) -> tuple[list, dict]:
+    """(problems, summary) of one f32 step's (metrics, gradients, BN
+    buffers) `got` against `ref`, inside the noise band of `draws` (CPU
+    steps after rounding-size weight moves, see NOISE_MOVE)."""
+    (m_got, g_got, s_got), (m_ref, g_ref, s_ref) = got, ref
+    problems, metrics = [], {}
+    for k, r in m_ref.items():
+        d = abs(m_got[k] - r)
+        band = max(abs(m[k] - r) for m, _, _ in draws)
+        metrics[k] = {"card": m_got[k], "cpu": r, "band": band}
+        # acc: argmax of the class scores, which the quirk moves
+        if k != "acc" and d > max(NOISE_K * band, METRIC_RTOL * abs(r)):
+            problems.append(f"metric {k}: {m_got[k]} against {r} (band {band:.2e})")
+    stats_err = max(_rel_max(s_got[n], s_ref[n]) for n in s_ref)
+    if stats_err > STATS_TOL:
+        problems.append(f"BN running stats: {stats_err:.2e} of the largest entry")
+    stable, noisy = [], []
+    for n, r in g_ref.items():
+        band = max(_rel_max(g[n], r) for _, g, _ in draws)
+        err = _rel_max(g_got[n], r)
+        (stable if band < STABLE_BAND else noisy).append((n, err, band))
+        if band < STABLE_BAND and err > max(NOISE_K * band, GRAD_FLOOR):
+            problems.append(f"grad {n}: {err:.2e} of its largest entry, band {band:.2e}")
+    names = [n for n, _, _ in noisy]
+    l2_got = _rel_l2(g_got, g_ref, names)
+    l2_band = max(_rel_l2(g, g_ref, names) for _, g, _ in draws)
+    if l2_got > GLOBAL_K * l2_band:
+        problems.append(f"{len(names)} noisy gradients: relative L2 {l2_got:.2e}, "
+                        f"band {l2_band:.2e}")
+    return problems, {"metrics": metrics, "stats_max_rel": stats_err,
+                      "stable_grads": [{"name": n, "err": e, "band": b} for n, e, b in stable],
+                      "noisy_grads": {"n": len(names), "rel_l2": l2_got,
+                                      "band_rel_l2": l2_band,
+                                      "max_err": max(e for _, e, _ in noisy)}}
+
+
+def train_step_card_vs_cpu(seed: int = 1, size: int = 96, keep: dict | None = None) -> dict:
+    """Phase 7: one f32 train step at size^2, batch 2, with every BN on
+    K6 (one-pass threshold 0), TF32 off: the card against the CPU, within
+    the CPU's own noise band (see NOISE_MOVE).  `keep` receives the
+    card's step and the band's draws (phase 14 holds two ranks to them)."""
+    with f32_exact():
+        batch = f32_batch(seed, size)
+        reset_launches()
+        card = _f32_step("cuda", seed, batch)
+        launches = read_launches()
+        cpu = _f32_step("cpu", seed, batch)
+        draws = [_f32_step("cpu", seed, batch, move_seed=k) for k in range(1, N_DRAWS + 1)]
     n_bn = sum(isinstance(m, layers.TorchBatchNorm) for m in
                build_capsnet(device="cpu", compute_dtype=torch.float32).modules())
     want = {"composite_convt": 1, "composite_convt_bwd": 1, "bn_stats": n_bn,
             "tap_conv_fwd": 2, "tap_conv_dx": 2, "tap_conv_dw": 2}  # pose and act convs
     problems = [f"launches {launches} != {want}"] if launches != want else []
-
-    metrics = {}
-    for k, ref in m_cpu.items():
-        d = abs(m_card[k] - ref)
-        band = max(abs(m[k] - ref) for m, _, _ in draws)
-        metrics[k] = {"card": m_card[k], "cpu": ref, "band": band}
-        if k != "acc":
-            ok = d <= max(NOISE_K * band, METRIC_RTOL * abs(ref))
-        else:  # acc: argmax of the class scores, which the quirk moves
-            ok = True
-        if not ok:
-            problems.append(f"metric {k}: card {m_card[k]} cpu {ref} (band {band:.2e})")
-    stats_err = max(_rel_max(s_card[n], s_cpu[n]) for n in s_cpu)
-    if stats_err > STATS_TOL:
-        problems.append(f"BN running stats: {stats_err:.2e} of the largest entry")
-    stable, noisy = [], []
-    for n, ref in g_cpu.items():
-        band = max(_rel_max(g[n], ref) for _, g, _ in draws)
-        err = _rel_max(g_card[n], ref)
-        (stable if band < STABLE_BAND else noisy).append((n, err, band))
-        if band < STABLE_BAND and err > max(NOISE_K * band, GRAD_FLOOR):
-            problems.append(f"grad {n}: {err:.2e} of its largest entry, band {band:.2e}")
-    names = [n for n, _, _ in noisy]
-    l2_card = _rel_l2(g_card, g_cpu, names)
-    l2_band = max(_rel_l2(g, g_cpu, names) for _, g, _ in draws)
-    if l2_card > GLOBAL_K * l2_band:
-        problems.append(f"{len(names)} noisy gradients: relative L2 {l2_card:.2e}, "
-                        f"band {l2_band:.2e}")
-    return {"ok": not problems, "problems": problems[:20], "launches": launches,
-            "metrics": metrics, "stats_max_rel": stats_err,
-            "stable_grads": [{"name": n, "err": e, "band": b} for n, e, b in stable],
-            "noisy_grads": {"n": len(names), "rel_l2": l2_card, "band_rel_l2": l2_band,
-                            "max_err": max(e for _, e, _ in noisy)}}
+    band_problems, summary = within_band(card, cpu, draws)
+    problems += band_problems
+    if keep is not None:
+        keep.update(card=card, draws=draws)
+    return {"ok": not problems, "problems": problems[:20], "launches": launches, **summary}
 
 
 def train_main_path(seed: int) -> tuple[dict, object]:
@@ -777,7 +828,8 @@ def _counted_trainers(sync_probe_epoch: int | None = None):
     """Within: each Trainer's train epochs and validations append the
     launches they made (the counts read before and after) to
     `trainer.launches`, and `restore` records its seconds and what it
-    restored in `trainer.restored`.  The train steps of epoch
+    restored in `trainer.restored` (and `_state_digests` of the state it
+    restored in `trainer.restored_digests`).  The train steps of epoch
     `sync_probe_epoch` run under torch.cuda.set_sync_debug_mode("warn"),
     their host synchronisations counted by site into `trainer.sync_sites`.
     The CLIs' argv -> config mapping gives the synthetic backend
@@ -810,8 +862,8 @@ def _counted_trainers(sync_probe_epoch: int | None = None):
     def counted_validate(self, e):
         before = read_launches()
         loss = validate(self, e)
-        self.launches[-1].update(val=counts_since(before),
-                                 val_batches=-(-len(self.val_dataset) // self.cfg.bs))
+        self.launches[-1].update(val=counts_since(before), val_batches=mesh.steps_lockstep(
+            len(self.val_dataset), self.world, self.rank_bs))
         return loss
 
     def timed_restore(self, path):
@@ -823,6 +875,7 @@ def _counted_trainers(sync_probe_epoch: int | None = None):
                          "lr": self.state.learning_rate(), "best": self.scheduler.best,
                          "bad": self.scheduler.num_bad_epochs,
                          "cooldown": self.scheduler.cooldown_counter}
+        self.restored_digests = _state_digests(self.state)
         return start
 
     def few_videos(args, dataset):
@@ -838,6 +891,15 @@ def _counted_trainers(sync_probe_epoch: int | None = None):
     finally:
         Trainer.train_epoch, Trainer.validate, Trainer.restore = train_epoch, validate, restore
         cli_common.args_to_config = to_config
+
+
+def _state_digests(state) -> dict:
+    """sha256 of a train state's parameters and of its dropout generator."""
+    def sha(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+    return {"params": sha(_flat_params(state.model).float()),
+            "generator": sha(state.generator.get_state())}
 
 
 def _train_cli(cli, argv: list, step_want: dict, batch_want: dict,
@@ -996,6 +1058,444 @@ def bench_phase(seed: int) -> dict:
                                  f"{r['check']}")
         out[cell] = r
     return out
+
+
+# phase 14: the data-parallel path
+DP_STEPS = 3  # full-width bf16 steps in parts (a) and (b)
+DP_WORLD = 2  # part (b): two ranks on the one card, over gloo
+DP_TIMEOUT_S = 600  # each of the phase's spawns
+# part (a): the group's step-1 gradients no farther (relative L2) from the
+# runs without a group than DP_NOISE_K times those runs' own gap (the
+# atomics of max_pool3d's backward); a zero, doubled or wrong gradient is O(1)
+DP_NOISE_K = 4.0
+
+
+def _flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def _flat_grads(model) -> torch.Tensor:
+    return torch.cat([p.grad.detach().float().reshape(-1) for p in model.parameters()
+                      if p.grad is not None])
+
+
+def _count_big_bn(model) -> list:
+    """Forward pre-hooks noting, per BN input, whether it takes K6; the
+    caller removes them (phase 8's count)."""
+    seen: list = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].numel() >= layers.BN_ONEPASS_MIN))
+        for m in model.modules() if isinstance(m, layers.TorchBatchNorm)]
+    return seen, hooks
+
+
+def _dp_steps(seed: int, batch: dict, steps: int) -> dict:
+    """`steps` bf16 train steps at the bench configuration from seeded
+    weights: each step's losses, wall (synchronised) and parameters
+    after it (a flat copy on the card), the initial parameters and the
+    first step's gradients, the launches (set to 0 just before, read
+    just after) and the K6 inputs a step."""
+    state = create_train_state(seed=seed, device="cuda", bn_groups=2, dropout_rate=0.5)
+    step = make_train_step(LossConfig(**TRAIN_CFG))
+    big, hooks = _count_big_bn(state.model)
+    start = _flat_params(state.model).clone()
+    losses, walls, params, grads = [], [], [], None
+    torch.cuda.synchronize()
+    reset_launches()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, TRAIN_EPOCH, TRAIN_RAMP)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        params.append(_flat_params(state.model))
+        if i == 0:
+            grads = _flat_grads(state.model)
+            for h in hooks:
+                h.remove()
+    return {"losses": losses, "step_s": walls, "params": params, "start": start,
+            "grads_step1": grads, "launches": read_launches(), "big_bn_per_step": sum(big),
+            "state": state}
+
+
+def _grad_allreduce_ms(model, reps: int = 3) -> float:
+    """Median wall of `all_reduce_grads` over the model's gradients."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.all_reduce_grads(model.parameters())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def _step_want(big_bn: int, steps: int) -> dict:
+    return {"composite_convt": steps, "composite_convt_bwd": steps, "bn_stats": big_bn * steps,
+            "tap_conv_fwd": 2 * steps, "tap_conv_dx": 2 * steps, "tap_conv_dw": 2 * steps}
+
+
+def _nccl_rank(r, out_dir, seed):
+    """Phase 14 (a) in a process of its own: CUBLAS_WORKSPACE_CONFIG is
+    read when cuBLAS starts, and torch's deterministic algorithms are a
+    process-wide switch.  Their warnings name the operations that have
+    no deterministic form."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    batch = synthetic_batch(np.random.default_rng(47 + seed), TRAIN_BS, (224, 224))
+    def profiled(run) -> dict:  # one more step, under torch.profiler
+        step = make_train_step(LossConfig(**TRAIN_CFG))
+        st = run.pop("state")
+        p = profile_call(lambda: step(st, batch, TRAIN_EPOCH, TRAIN_RAMP))
+        return {k: p[k] for k in ("wall_ms", "device_ms", "busy_share")} | {"model": st.model}
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        plain = _dp_steps(seed, batch, DP_STEPS)
+        prof_none = profiled(plain)
+        del prof_none["model"]
+        again = _dp_steps(seed, batch, DP_STEPS)
+        del again["state"]
+        mesh.initialize_distributed(f"tcp://localhost:{mesh.free_port()}", 1, 0,
+                                    device="cuda:0", backend="nccl")
+        try:
+            group = _dp_steps(seed, batch, DP_STEPS)
+            prof_group = profiled(group)
+            allreduce_ms = _grad_allreduce_ms(prof_group.pop("model"))
+        finally:
+            torch.distributed.destroy_process_group()
+
+    def rel_l2(x, y) -> float:
+        return float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
+
+    def gap(a, b) -> dict:
+        d = [float((x.float() - y.float()).abs().max()) for x, y in zip(a["params"], b["params"])]
+        return {"bitwise": all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+                and a["losses"] == b["losses"],
+                "same_start": torch.equal(a["start"], b["start"]),
+                "first_forward_bitwise": a["losses"][0] == b["losses"][0],
+                "grad_rel_l2_step1": rel_l2(a["grads_step1"], b["grads_step1"]),
+                # each step's update (parameters after it minus the start)
+                "update_rel_l2": [rel_l2(x, y) for x, y in
+                                  zip((p - a["start"] for p in a["params"]),
+                                      (p - b["start"] for p in b["params"]))],
+                "max_abs_param": max(d),
+                "max_rel_loss": max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                                    for x, y in zip(a["losses"], b["losses"]))}
+
+    nondeterministic = sorted({str(w.message).split(" does not have a deterministic")[0]
+                               for w in caught if "deterministic" in str(w.message)})
+    torch.save({"group_vs_none": gap(group, plain), "none_vs_none": gap(again, plain),
+                "launches": group["launches"], "launches_none": plain["launches"],
+                "big_bn_per_step": plain["big_bn_per_step"],
+                "warm_step_ms": {"group": 1e3 * float(np.median(group["step_s"][1:])),
+                                 "none": 1e3 * float(np.median(plain["step_s"][1:]))},
+                "grad_allreduce_ms": allreduce_ms,
+                "profiled_step": {"group": prof_group, "none": prof_none},
+                "losses": [m["loss"] for m in group["losses"]],
+                "nondeterministic_ops": nondeterministic},
+               os.path.join(out_dir, "a.pt"))
+
+
+def nccl_world_one(seed: int) -> dict:
+    """Phase 14 (a): DP_STEPS full-width bf16 steps with a one-rank NCCL
+    group active (every collective of the path runs) against the same
+    steps without a group, and those again without a group, under torch's
+    deterministic algorithms (in a process of its own, `_nccl_rank`)."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # cuBLAS's deterministic setting
+    try:
+        mesh.launch(_nccl_rank, 1, (out_dir, seed), timeout=DP_TIMEOUT_S)
+        res = torch.load(os.path.join(out_dir, "a.pt"), weights_only=False)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        if saved is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+    res["want"] = want = _step_want(res["big_bn_per_step"], DP_STEPS)
+    # bit for bit when the plain runs are; else the first step's forward
+    # (its losses, before any backward) bit for bit and its gradients no
+    # farther apart than DP_NOISE_K times the plain runs' own gap
+    g, n = res["group_vs_none"], res["none_vs_none"]
+    ok_gap = g["same_start"] and (g["bitwise"] if n["bitwise"] else
+                                  g["first_forward_bitwise"] and g["grad_rel_l2_step1"]
+                                  <= DP_NOISE_K * n["grad_rel_l2_step1"])
+    if not (ok_gap and res["launches"] == want and res["launches_none"] == want):
+        raise AssertionError(f"phase 14 (a): {res}")
+    return res
+
+
+def _dp_rank(r, world, init, out_dir, seed, f32_seed):
+    """Phase 14 (b)'s rank r of `world` on cuda:0, over gloo."""
+    mesh.initialize_distributed(init, world, r, device="cuda:0", backend="gloo")
+    try:
+        batch = mesh.local_rows(
+            synthetic_batch(np.random.default_rng(47 + seed), TRAIN_BS, (224, 224)), r, world)
+        run = _dp_steps(seed, batch, DP_STEPS)
+        allreduce_ms = _grad_allreduce_ms(run.pop("state").model)
+        digests = [hashlib.sha256(p.cpu().numpy().tobytes()).hexdigest() for p in run["params"]]
+        with f32_exact():
+            m, g, b = _f32_step("cuda", f32_seed, mesh.local_rows(f32_batch(f32_seed, 96), r,
+                                                                   world))
+        out = {"losses": run["losses"], "step_s": run["step_s"], "launches": run["launches"],
+               "big_bn_per_step": run["big_bn_per_step"], "digests": digests,
+               "grad_allreduce_ms": allreduce_ms,
+               "f32_digest": hashlib.sha256(torch.cat(
+                   [t.reshape(-1) for t in g.values()]).numpy().tobytes()).hexdigest()}
+        if r == 0:
+            out["f32"] = (m, g, b)
+        torch.save(out, os.path.join(out_dir, f"{r}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def two_ranks_one_card(seed: int, f32_seed: int, f32_card: dict) -> dict:
+    """Phase 14 (b): DP_WORLD ranks on cuda:0 over gloo (NCCL refuses two
+    ranks on one card), global batch TRAIN_BS: DP_STEPS bf16 steps, then
+    an f32 step at 96^2 on phase 7's batch, held to phase 7's
+    single-process card step within phase 7's noise band."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        t0 = time.perf_counter()
+        mesh.launch(_dp_rank, DP_WORLD, (DP_WORLD, f"tcp://localhost:{mesh.free_port()}",
+                                         out_dir, seed, f32_seed), timeout=DP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        got = [torch.load(os.path.join(out_dir, f"{r}.pt"), weights_only=False)
+               for r in range(DP_WORLD)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    problems, band = within_band(got[0]["f32"], f32_card["card"], f32_card["draws"])
+    want = _step_want(got[0]["big_bn_per_step"], DP_STEPS)
+    if any(g["losses"] != got[0]["losses"] for g in got):
+        problems.append("the ranks' losses differ")
+    if any(g["digests"] != got[0]["digests"] or g["f32_digest"] != got[0]["f32_digest"]
+           for g in got):
+        problems.append("the ranks' parameters or gradients differ")
+    if any(g["launches"] != want for g in got):
+        problems.append(f"launches {[g['launches'] for g in got]}, want {want} on each rank")
+    finite = all(np.isfinite(v) for g in got for m in g["losses"] for v in m.values())
+    if not finite:
+        problems.append("a non-finite loss")
+    res = {"wall_s": wall, "launches_per_rank": [g["launches"] for g in got], "want": want,
+           "big_bn_per_step": got[0]["big_bn_per_step"],
+           "launches_a_step_per_rank": {k: v / DP_STEPS for k, v in got[0]["launches"].items()},
+           "losses": [m["loss"] for m in got[0]["losses"]],
+           "warm_rank_step_ms": [1e3 * float(np.median(g["step_s"][1:])) for g in got],
+           "grad_allreduce_ms": [g["grad_allreduce_ms"] for g in got],
+           "f32_vs_one_process": band, "problems": problems}
+    if problems:
+        raise AssertionError(f"phase 14 (b): {problems}")
+    return res
+
+
+_TRAIN_RANK = cli_common._train_rank  # each process's own, before any patch
+
+
+def _counted_train_rank(out_dir, local_rank, *args):
+    """`cli.common._train_rank` in a rank process that train_ucf101.main
+    starts in phase 14 (b): the rank's Trainer counted as phase 13 counts
+    one (`_counted_trainers`, in this process), the launch counts set to
+    0 just before and read just after, and what it recorded saved to
+    out_dir/<rank>.pt for the parent to check."""
+    with _counted_trainers():
+        torch.cuda.synchronize()
+        reset_launches()
+        tr = _TRAIN_RANK(local_rank, *args)
+        torch.cuda.synchronize()
+        total = read_launches()
+    torch.save({"launches": tr.launches, "total": total, "epoch_stats": tr.epoch_stats,
+                "save_dir": tr.save_dir, "restored": getattr(tr, "restored", None),
+                "restored_digests": getattr(tr, "restored_digests", None),
+                "end": {"digests": _state_digests(tr.state), "lr": tr.state.learning_rate(),
+                        "best": tr.scheduler.best, "bad": tr.scheduler.num_bad_epochs,
+                        "cooldown": tr.scheduler.cooldown_counter}},
+               os.path.join(out_dir, f"{local_rank}.pt"))
+
+
+def _run_files_problems(run_dir: str) -> list:
+    """One writer in a run directory: metrics.jsonl with each (tag, step)
+    once and finite values, TensorBoard events of at most one process, and
+    nothing else but the checkpoints' files."""
+    problems = []
+    files = {os.path.relpath(os.path.join(p, f), run_dir)
+             for p, _, fs in os.walk(run_dir) for f in fs}
+    events = {f for f in files if "tfevents" in f}
+    if len({f.split(".")[-2] for f in events}) > 1:
+        problems.append(f"events of several processes {sorted(events)}")
+    want = {"metrics.jsonl"} | {f"{c}/train_state.pt" for c in os.listdir(run_dir)
+                                if c.startswith("best_model_")}
+    if files - events != want:
+        problems.append(f"files {sorted(files - events)}, want {sorted(want)}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    tags = [(r["tag"], r["step"]) for r in records]
+    values = [v for r in records for k, v in r.items() if k not in ("tag", "step", "time")]
+    if len(tags) != len(set(tags)) or not (values and np.isfinite(values).all()):
+        problems.append(f"metrics.jsonl: {records}")
+    return problems
+
+
+def train_cli_two_ranks(big_bn: int) -> dict:
+    """Phase 14 (b), the train CLI: train_ucf101.main --num_devices
+    DP_WORLD with both ranks on cuda:0 (`devices`, so over gloo), phase
+    13's flags and videos, for one epoch, then again with --resume from
+    its epoch-1 checkpoint for epoch 2.  Each rank's launches (set to 0
+    just before and read just after, in the rank's process): K1-K6 as a
+    rank step of part (b) a train step, K1 once and K3 twice a lockstep
+    validation batch, nothing else; the same losses, parameters and
+    save_dir on every rank; one writer; and each rank resumes the
+    epoch, LR, plateau counters, parameters and its own dropout stream
+    that the first run ended with."""
+    step_want = _step_want(big_bn, 1)
+    batch_want = {"composite_convt": 1, "composite_convt_bwd": 0, "bn_stats": 0,
+                  "tap_conv_fwd": 2, "tap_conv_dx": 0, "tap_conv_dw": 0}
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    problems, res, launch = [], {}, mesh.launch
+
+    def run(name: str, extra: list) -> list:
+        out = os.path.join(root, "ranks_" + name)
+        os.makedirs(out)
+        cli_common._train_rank = functools.partial(_counted_train_rank, out)
+        mesh.launch = functools.partial(launch, timeout=DP_TIMEOUT_S)  # the CLI's spawn
+        try:
+            t0 = time.perf_counter()
+            with _counted_trainers():  # TRAINER_VIDEOS, in the config the ranks receive
+                if train_ucf101.main(TRAINER_ARGV + [
+                        "--num_devices", str(DP_WORLD), "--save_root", root, "--exp_id", name,
+                        *extra], devices=["cuda:0"] * DP_WORLD) is not None:
+                    problems.append(f"{name}: train_main returned a Trainer, not ranks")
+            res[name + "_wall_s"] = time.perf_counter() - t0
+        finally:
+            cli_common._train_rank, mesh.launch = _TRAIN_RANK, launch
+        recs = [torch.load(os.path.join(out, f"{r}.pt"), weights_only=False)
+                for r in range(DP_WORLD)]
+        for r, rec in enumerate(recs):
+            steps = batches = 0
+            for c in rec["launches"]:
+                per_step = {k: v / c["steps"] for k, v in c["train"].items()}
+                per_batch = {k: v / c["val_batches"] for k, v in c["val"].items()}
+                if per_step != step_want or per_batch != batch_want:
+                    problems.append(f"{name} rank {r} epoch {c['epoch']}: a step {per_step}, "
+                                    f"a val batch {per_batch}")
+                steps, batches = steps + c["steps"], batches + c["val_batches"]
+            want = {k: steps * step_want[k] + batches * batch_want[k] for k in step_want}
+            if rec["total"] != want:
+                problems.append(f"{name} rank {r}: launches {rec['total']}, want {want}")
+        first = recs[0]
+        for key, get in (("save_dir", lambda c: c["save_dir"]),
+                         ("losses", lambda c: [e["loss"] for e in c["epoch_stats"]]),
+                         ("parameters", lambda c: c["end"]["digests"]["params"])):
+            if any(get(c) != get(first) for c in recs):
+                problems.append(f"{name}: the ranks' {key} differ")
+        if not np.isfinite([e["loss"] for e in first["epoch_stats"]]).all():
+            problems.append(f"{name}: a non-finite loss")
+        if os.listdir(os.path.join(root, name)) != [os.path.basename(first["save_dir"])]:
+            problems.append(f"{name}: run directories {os.listdir(os.path.join(root, name))}")
+        problems.extend(f"{name}: {p}" for p in _run_files_problems(first["save_dir"]))
+        res[name] = {"epochs": [dict(e, launches_a_step={k: v / c["steps"]
+                                                         for k, v in c["train"].items()},
+                                     launches_a_val_batch={k: v / c["val_batches"]
+                                                           for k, v in c["val"].items()})
+                                for e, c in zip(first["epoch_stats"], first["launches"])],
+                     "launches_per_rank": [c["total"] for c in recs]}
+        return recs
+
+    try:
+        one = run("dp", ["--epochs", "1"])
+        ckpt = os.path.join(one[0]["save_dir"], "best_model_train_loss_1")
+        gens = CheckpointIO.load(ckpt).get("rank_generators", [])
+        if len(gens) != DP_WORLD or torch.equal(gens[0], gens[1]):
+            problems.append(f"the checkpoint holds {len(gens)} rank generators, or equal ones")
+        two = run("dp_resumed", ["--epochs", "2", "--resume", ckpt])
+        for r, (a, b) in enumerate(zip(one, two)):
+            got = {k: v for k, v in (b["restored"] or {}).items() if k != "seconds"}
+            want = {"next_epoch": 2} | {k: a["end"][k] for k in ("lr", "best", "bad", "cooldown")}
+            if (got != want or b["restored_digests"] != a["end"]["digests"]
+                    or [e["epoch"] for e in b["epoch_stats"]] != [2]):
+                problems.append(f"rank {r} resumed {got} {b['restored_digests']}, epochs "
+                                f"{[e['epoch'] for e in b['epoch_stats']]}; want {want} "
+                                f"{a['end']['digests']}, [2]")
+        res["restore_s"] = [b["restored"]["seconds"] for b in two]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["problems"] = problems
+    if problems:
+        raise AssertionError(f"phase 14 (b), the train CLI: {problems}")
+    return res
+
+
+def eval_dp_phase(seed: int) -> dict:
+    """Phase 14 (c): --eval_dp 2 with both replicas on cuda:0 (f32, TF32
+    off, cuDNN's deterministic algorithms): 17 clips through
+    make_sharded_forward, bit for bit one replica's forward on the same
+    7-clip slices, and against one replica at clip batch 14 (reported:
+    another batch shape sums in another order, and EM routing's cost_std
+    amplifies that); then evaluate_ucf101.main at --eval_dp 2 and 1 on
+    one checkpoint.  Launch counts set to 0 just before and read just
+    after: K1 once and K3 twice a replica's slice of a padded batch."""
+    devs = ["cuda:0"] * 2
+    clips = np.random.default_rng(seed + 3).uniform(0, 1, (17, 8, 224, 224, 3)).astype(np.float32)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with f32_exact():
+            models = [build_capsnet(seed=seed, compute_dtype=torch.float32, device=d)
+                      for d in devs]
+            reset_launches()
+            seg2, sc2 = make_sharded_forward(models, clip_batch_size=14)(clips)
+            launches = read_launches()
+            one, n = make_eval_fn(models[0]), clips.shape[0]
+            rows = -(-n // 14) * 14  # the padded batches' rows, 7 a replica
+            padded = np.concatenate([clips, np.zeros((rows - n, *clips.shape[1:]), np.float32)])
+            outs = [one(torch.from_numpy(padded[i:i + 7]).cuda()) for i in range(0, rows, 7)]
+            seg_s, sc_s = (torch.cat([o[k] for o in outs])[:n].cpu().numpy() for k in (0, 1))
+            whole = make_padded_forward(models[0], clip_batch_size=14)
+            parts = [whole(clips[i:i + 14]) for i in range(0, n, 14)]
+            seg1, sc1 = (np.concatenate([p[k] for p in parts]) for k in (0, 1))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    del models
+    nb = 2 * (rows // 14)  # 17 clips: 2 padded batches, each split over 2 replicas
+    want = {"composite_convt": nb, "composite_convt_bwd": 0, "bn_stats": 0,
+            "tap_conv_fwd": 2 * nb, "tap_conv_dx": 0, "tap_conv_dw": 0}
+    fwd = {"bitwise_vs_one_replica_same_slices": bool(
+               np.array_equal(seg2, seg_s) and np.array_equal(sc2, sc_s)),
+           "vs_one_replica_batch_14": {
+               "max_abs_sigmoid_seg": float(np.abs(seg1 - seg2).max()),
+               "max_abs_scores": float(np.abs(sc1 - sc2).max()),
+               "same_argmax": bool((sc1.argmax(1) == sc2.argmax(1)).all())}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_dp_")
+    try:
+        state = create_train_state(seed=seed, device="cuda", bn_groups=2)
+        CheckpointIO().save(os.path.join(root, "best_model_train_loss_1"), state)
+        del state
+        argv = ["--ckpt", root, "--synthetic", "--split", "train", "--no_prune", "--nan_safe"]
+        one = evaluate_ucf101.main(argv)
+        reset_launches()
+        t0 = time.perf_counter()
+        two = evaluate_ucf101.main(argv + ["--eval_dp", "2"], eval_devices=devs)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = read_launches()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cnb = 2 * _eval_batches(24)
+    cli_want = {"composite_convt": cnb, "composite_convt_bwd": 0, "bn_stats": 0,
+                "tap_conv_fwd": 2 * cnb, "tap_conv_dx": 0, "tap_conv_dw": 0}
+    keys = ("accuracy", "fmAP@0.5", "vmAP@0.5", "fmAP@0.2", "vmAP@0.2")
+    (p1, r1), (p2, r2) = next(iter(one.items())), next(iter(two.items()))
+    summaries = {k: (float(r1[k]), float(r2[k])) for k in keys}
+    same = all(np.allclose(a, b, rtol=0, atol=1e-6, equal_nan=True) for a, b in summaries.values())
+    res = {"forward": fwd, "launches": launches, "want": want, "cli_launches": cli_launches,
+           "cli_want": cli_want, "cli_seconds": cli_s, "summaries_eval_dp_1_2": summaries}
+    if not (fwd["bitwise_vs_one_replica_same_slices"] and launches == want
+            and cli_launches == cli_want and same and p1 == p2):
+        raise AssertionError(f"phase 14 (c): {res}")
+    return res
 
 
 def main() -> int:
@@ -1178,7 +1678,8 @@ def main() -> int:
         if p["device_ms"] else "device time not measured (the profiler saw no CUDA activity)"))
 
     # 7 one f32 train step, card vs CPU
-    ts = train_step_card_vs_cpu(seed=args.seed + 1, size=96)
+    f32_card: dict = {}
+    ts = train_step_card_vs_cpu(seed=args.seed + 1, size=96, keep=f32_card)
     results["train_slice_f32_card_vs_cpu"] = ts
     if not ts["ok"]:
         raise AssertionError(f"train step card vs CPU: {ts['problems']}")
@@ -1278,6 +1779,56 @@ def main() -> int:
               f"{e['checkpoints']}, {e['padded_batches']} padded batches, "
               f"{e['seconds_a_checkpoint']:.2f} s a checkpoint, launches a batch "
               f"{e['launches_a_batch']}; {e['summaries']}; left {e['surviving']} | {smi}")
+
+    # 14 the data-parallel path
+    torch.cuda.empty_cache()
+    t_dp = time.perf_counter()
+    results["nccl_world_one"] = a = nccl_world_one(args.seed)
+    phase(14, "data-parallel", "(a) one-rank NCCL group, bench configuration bf16 batch "
+          f"{TRAIN_BS}, {DP_STEPS} steps (torch's deterministic algorithms): against no group "
+          f"{a['group_vs_none']}, no group against itself {a['none_vs_none']}; operations "
+          f"without a deterministic form {a['nondeterministic_ops']}; launches "
+          f"{a['launches']}; warm step {a['warm_step_ms']['group']:.2f} ms with the group, "
+          f"{a['warm_step_ms']['none']:.2f} ms without; one profiled step with / without "
+          f"the group: {a['profiled_step']['group']} / {a['profiled_step']['none']}; gradient "
+          f"all-reduce (NCCL, world 1) {a['grad_allreduce_ms']:.3f} ms | {smi}")
+    torch.cuda.empty_cache()
+    results["two_ranks_one_card"] = b = two_ranks_one_card(args.seed, args.seed + 1, f32_card)
+    del f32_card
+    band = b["f32_vs_one_process"]
+    phase(14, "data-parallel", f"(b) {DP_WORLD} ranks on cuda:0 over gloo, global batch "
+          f"{TRAIN_BS} ({TRAIN_BS // DP_WORLD} a rank), bf16, {DP_STEPS} steps: the same losses "
+          f"{b['losses']} and parameters on both ranks after every step; launches a step per "
+          f"rank {b['launches_a_step_per_rank']} (each rank {b['launches_per_rank']}); warm "
+          f"rank step {b['warm_rank_step_ms']} ms (two ranks share the card) against the "
+          f"single-card step {tr['warm_step_ms']:.2f} ms (phase 8); gradient all-reduce "
+          f"(gloo, ~192 MB f32) {b['grad_allreduce_ms']} ms a rank; spawn wall "
+          f"{b['wall_s']:.1f} s | f32 96^2 step at world 2 against phase 7's card step: "
+          f"BN stats {band['stats_max_rel']:.2e}, losses (band) " + ", ".join(
+              f"{k} {v['card']:.6f}/{v['cpu']:.6f} ({v['band']:.1e})"
+              for k, v in band["metrics"].items())
+          + f", noisy gradients relative L2 {band['noisy_grads']['rel_l2']:.2e} vs band "
+          f"{band['noisy_grads']['band_rel_l2']:.2e} | {smi}")
+    torch.cuda.empty_cache()
+    results["train_cli_two_ranks"] = d = train_cli_two_ranks(b["big_bn_per_step"])
+    phase(14, "data-parallel", f"(b) train_ucf101.main --num_devices {DP_WORLD} on cuda:0 "
+          "twice (gloo), phase 13's flags: " + "; ".join(
+              f"{run} epoch {e['epoch']}: {e['steps']} steps in {e['seconds']:.2f} s = "
+              f"{e['clips_per_s']:.2f} clips/s, loss {e['loss']:.4f}, launches a rank step "
+              f"{e['launches_a_step']}, a val batch {e['launches_a_val_batch']}"
+              for run in ("dp", "dp_resumed") for e in d[run]["epochs"])
+          + f"; each rank's launches {d['dp']['launches_per_rank']} / "
+          f"{d['dp_resumed']['launches_per_rank']}; one writer; both ranks resumed epoch 2 "
+          f"with the epoch-1 state (parameters, LR, plateau counters, own dropout stream) in "
+          f"{d['restore_s']} s; calls {d['dp_wall_s']:.1f} / {d['dp_resumed_wall_s']:.1f} s "
+          f"| {smi}")
+    results["eval_dp"] = c = eval_dp_phase(args.seed)
+    results["data_parallel_seconds"] = time.perf_counter() - t_dp
+    phase(14, "data-parallel", f"(c) --eval_dp 2, both replicas on cuda:0, f32: 17 clips "
+          f"against one replica {c['forward']}, launches {c['launches']}; "
+          f"evaluate_ucf101.main --eval_dp 2 against --eval_dp 1: {c['summaries_eval_dp_1_2']}, "
+          f"launches {c['cli_launches']}, {c['cli_seconds']:.2f} s | phase "
+          f"{results['data_parallel_seconds']:.1f} s | {smi}")
 
     k1, k2, k6 = checks[2], bwd[0], stats[0]  # bf16 at the train shapes
     k35 = {conv: next(c for c in taps if "kernel_ms" in c["tap_conv_fwd"] and c["co"] == co)

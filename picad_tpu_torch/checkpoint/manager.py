@@ -16,6 +16,13 @@ checkpoint holds the whole train state, so a run resumes exactly:
 A checkpoint is a directory `best_model_{tag}_loss_{epoch}` (the JAX
 package's names) holding one `torch.save` file, read back with
 `weights_only=True`.
+
+Inside a process group (picad_tpu/checkpoint/manager.py:28-45, :74-80)
+every rank calls `save`, and rank 0 alone writes, between two barriers;
+the file also holds every rank's dropout generator (`rank_generators`),
+so a resume at the same world size continues each rank's stream.  Every
+rank restores from the file onto its own device, and only rank 0
+deletes a superseded checkpoint.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import shutil
 
 import torch
 
+from picad_tpu_torch.parallel import mesh
 from picad_tpu_torch.train.state import TrainState
 
 STATE_FILE = "train_state.pt"
@@ -35,8 +43,14 @@ class CheckpointIO:
 
     def save(self, path: str, state: TrainState) -> int:
         """Write the state into directory `path` (replacing one that is
-        there); returns the file's bytes."""
+        there); returns the file's bytes.  Every rank of a process group
+        calls it; rank 0 writes (the others return 0)."""
         path = os.path.abspath(path)
+        generators = mesh.gather_objects(state.generator.get_state())
+        mesh.barrier()
+        if not mesh.is_main():
+            mesh.barrier()  # rank 0 has written the file
+            return 0
         if os.path.exists(path):
             shutil.rmtree(path)
         os.makedirs(path)
@@ -51,8 +65,11 @@ class CheckpointIO:
             "sched_cooldown": int(state.sched_cooldown),
             "lr": state.learning_rate(),
         }
+        if len(generators) > 1:
+            payload["rank_generators"] = generators
         file = os.path.join(path, STATE_FILE)
         torch.save(payload, file)
+        mesh.barrier()
         return os.path.getsize(file)
 
     @staticmethod
@@ -67,7 +84,13 @@ class CheckpointIO:
         ckpt = self.load(path)
         state.model.load_state_dict(ckpt["model"])
         state.optimizer.load_state_dict(ckpt["optimizer"])
-        state.generator.set_state(ckpt["generator"])
+        gens = ckpt.get("rank_generators", [ckpt["generator"]])
+        if len(gens) == mesh.world_size():
+            state.generator.set_state(gens[mesh.rank()])
+        else:  # another world size: each rank keeps its fresh (seed, rank) stream
+            if mesh.is_main():
+                print(f"{path}: saved by {len(gens)} ranks, restored on "
+                      f"{mesh.world_size()}; the dropout streams start afresh")
         state.step, state.epoch = ckpt["step"], ckpt["epoch"]
         state.sched_best = ckpt["sched_best"]
         state.sched_bad, state.sched_cooldown = ckpt["sched_bad"], ckpt["sched_cooldown"]
@@ -98,7 +121,7 @@ class BestCheckpointPolicy:
         self.best_loss = loss
         path = os.path.join(self.save_dir, f"best_model_{self.tag}_loss_{epoch}")
         self.io.save(path, state)
-        if self.prev_path and epoch < self.keep_all_after_epoch:
+        if self.prev_path and epoch < self.keep_all_after_epoch and mesh.is_main():
             shutil.rmtree(self.prev_path, ignore_errors=True)
         self.prev_path = path
         return path

@@ -8,19 +8,25 @@ reference hard-coded (--data_root, --annotation_root, --mask_root) and
 the JAX package's own (--compute_dtype, --no_fold_flip, --num_devices,
 --synthetic, ...).
 
-The port trains on one card: `--num_processes` > 1 and `--num_devices`
-> 1 raise NotImplementedError until multi-GPU support lands (ROADMAP.md
-section 1, item 8) rather than quietly running on one card.
+Data parallelism (parallel/mesh.py): `--num_devices N` (0 = every
+visible card) starts N ranks on the host, one process per card, each
+taking `--bs`/N rows of the host's batch; `--num_processes P
+--process_id p --coordinator host:port` joins P hosts into one process
+group of P*N ranks, whose global batch is `--bs` x P, as in the JAX
+package.  One rank on one host (the default on a one-card machine)
+creates no process group and runs the one-card path.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Sequence
+
+import torch
 
 from picad_tpu_torch.config import TrainConfig
-
-MULTI_GPU = "waits for multi-GPU support (ROADMAP.md section 1, item 8)"
+from picad_tpu_torch.parallel import mesh
 
 
 def build_parser(dataset: str) -> argparse.ArgumentParser:
@@ -96,7 +102,8 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--no_fold_flip", action="store_true",
                    help="run original/flipped views as two forwards")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="cards to train on (0 = all visible; more than 1 " + MULTI_GPU + ")")
+                   help="cards to train on, one rank each (0 = all visible); "
+                   "each rank takes --bs / N rows")
     p.add_argument("--synthetic", action="store_true",
                    help="use the procedural data backend (hermetic runs)")
     p.add_argument("--wandb", action="store_true")
@@ -118,9 +125,9 @@ def build_parser(dataset: str) -> argparse.ArgumentParser:
                    "host streaming if the dataset exceeds the budget")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of train steps here")
-    # multi-process launch (one process per card)
+    # multi-host launch: one process per host, each starting its ranks
     p.add_argument("--coordinator", type=str, default="",
-                   help="host:port of process 0 (" + MULTI_GPU + ")")
+                   help="host:port of process 0's rendezvous (with --num_processes > 1)")
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     return p
@@ -181,17 +188,43 @@ def args_to_config(args, dataset: str) -> TrainConfig:
     return cfg
 
 
-def maybe_initialize_distributed(args) -> None:
-    """The JAX package starts its multi-host run here; the port trains in
-    one process, so several processes raise."""
-    if args.num_processes and args.num_processes > 1:
-        raise NotImplementedError(f"--num_processes {args.num_processes}: {MULTI_GPU}")
+def _hosts(args) -> int:
+    """--num_processes (at least 1), with its companion flags checked."""
+    hosts = max(args.num_processes, 1)
+    if hosts > 1:
+        if not args.coordinator:
+            raise ValueError(f"--num_processes {hosts} needs --coordinator host:port")
+        if not 0 <= args.process_id < hosts:
+            raise ValueError(f"--process_id {args.process_id} is not in [0, {hosts})")
+    return hosts
 
 
-def build_train_datasets(cfg: TrainConfig, *, device=None):
+def maybe_initialize_distributed(args, *, local_rank: int = 0, devices: Sequence = ("cpu",),
+                                 init_method: str | None = None) -> bool:
+    """Join the process group as the host's rank `local_rank` on
+    `devices[local_rank]`, one rank per entry of the host's `devices`:
+    global rank process_id * len(devices) + local_rank of
+    max(--num_processes, 1) * len(devices), at `init_method` (default:
+    the --coordinator's), over `mesh.backend_for(devices)`.  One rank on
+    one host joins nothing; returns whether a group was created.
+    Multi-host flags are checked first."""
+    hosts, n = _hosts(args), len(devices)
+    if hosts * n == 1:
+        return False
+    pid = max(args.process_id, 0) if hosts > 1 else 0
+    mesh.initialize_distributed(init_method or f"tcp://{args.coordinator}", hosts * n,
+                                pid * n + local_rank, device=devices[local_rank],
+                                backend=mesh.backend_for(devices))
+    return True
+
+
+def build_train_datasets(cfg: TrainConfig, *, device=None, multi_host: bool = False):
     """(labeled, unlabeled, validation) datasets for the config.  With
     `device_cache_bytes` the two train streams go into one
-    DeviceVideoCache on `device` (default: the CUDA card)."""
+    DeviceVideoCache on `device` (default: the CUDA card): on one host
+    every rank builds the whole cache on its own card, as the JAX package
+    replicates its pools over the local mesh; a `multi_host` run streams
+    (picad_tpu/cli/common.py:273-277)."""
     from picad_tpu_torch.data.dataset import ClipDataset
     from picad_tpu_torch.data.sources import (
         CachedVideoSource,
@@ -258,7 +291,11 @@ def build_train_datasets(cfg: TrainConfig, *, device=None):
                            with_validity=with_validity, seed=cfg.seed,
                            device_prep=d.device_prep)
 
-    if d.device_cache_bytes > 0 and d.device_prep:
+    if d.device_cache_bytes > 0 and d.device_prep and multi_host:
+        # the per-rank shard is re-drawn from a global shuffle every
+        # epoch, so no fixed video subset fits one host's pool
+        print("device video cache: multi-host run, using host streaming")
+    elif d.device_cache_bytes > 0 and d.device_prep:
         from picad_tpu_torch.data.device_cache import DeviceClipDataset, DeviceVideoCache
         from picad_tpu_torch.data.sources import ConcatVideoSource
 
@@ -283,20 +320,57 @@ def build_train_datasets(cfg: TrainConfig, *, device=None):
     return mk(lab, True), mk(unl, True), mk(val, False)
 
 
-def train_main(dataset: str, argv=None, *, device=None):
+def train_main(dataset: str, argv=None, *, device=None, devices=None):
     """The train CLIs' body (picad_tpu/cli/train_ucf101.py:23-40): parse,
     build the config and datasets, train on `device` (default: the CUDA
-    card), resuming from `--resume`.  Returns the Trainer."""
+    card), resuming from `--resume`.  Returns the Trainer.
+
+    With more than one rank (--num_devices, --num_processes) it starts
+    the host's ranks (`parallel.mesh.launch`), rank i on cuda:i (or all
+    on the CPU), or on `devices` when given (["cuda:0", "cuda:0"]: two
+    ranks sharing one card, over gloo), waits for them and returns None;
+    rank 0 prints, logs and writes the checkpoints."""
     from picad_tpu_torch._device import resolve_device
-    from picad_tpu_torch.train.loop import Trainer
 
     args = build_parser(dataset).parse_args(argv)
     print(vars(args))
     dev = resolve_device(device)  # no card and no device: raise before any work
-    maybe_initialize_distributed(args)
     cfg = args_to_config(args, dataset)
-    labeled, unlabeled, val = build_train_datasets(cfg, device=dev)
-    print(len(labeled), len(unlabeled), len(val))
+    devs = mesh.host_devices(cfg.parallel.num_devices, dev, devices)
+    hosts, n = _hosts(args), len(devs)
+    if n == 1 and hosts == 1:
+        return _train(cfg, args, dev if devices is None else devs[0])
+    mesh.check_rank_batch(cfg.bs, n)
+    cfg.parallel.num_devices = n
+    init = f"tcp://{args.coordinator}" if hosts > 1 else f"tcp://localhost:{mesh.free_port()}"
+    # CPU ranks share the host's torch threads
+    threads = max(torch.get_num_threads() // n, 1) if dev.type == "cpu" else 0
+    mesh.launch(_train_rank, n, (cfg, args, devs, init, threads))
+    return None
+
+
+def _train_rank(local_rank, cfg, args, devices, init_method, threads):
+    """One rank of `train_main`: join the group, train, leave; returns
+    the rank's Trainer."""
+    import torch.distributed as dist
+
+    if threads:
+        torch.set_num_threads(threads)
+    maybe_initialize_distributed(args, local_rank=local_rank, devices=devices,
+                                 init_method=init_method)
+    try:
+        return _train(cfg, args, devices[local_rank],
+                      multi_host=max(args.num_processes, 1) > 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(cfg, args, dev, multi_host: bool = False):
+    from picad_tpu_torch.train.loop import Trainer
+    from picad_tpu_torch.utils.logging import print0
+
+    labeled, unlabeled, val = build_train_datasets(cfg, device=dev, multi_host=multi_host)
+    print0(len(labeled), len(unlabeled), len(val))
     trainer = Trainer(
         cfg,
         labeled_dataset=labeled,

@@ -16,7 +16,6 @@ import argparse
 import os
 
 from picad_tpu_torch._device import resolve_device
-from picad_tpu_torch.cli.common import MULTI_GPU
 from picad_tpu_torch.data.dataset import EvalVideoDataset
 from picad_tpu_torch.data.sources import SyntheticVideoSource, UCFVideoSource
 from picad_tpu_torch.eval.runner import sweep_checkpoints
@@ -52,19 +51,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--eval_dp", type=int, default=0,
-        help="cards to shard clip batches over (0/1 = one card; more waits "
-        "for multi-GPU support, ROADMAP.md section 1, item 8)",
+        help="cards to split each clip batch over, one eval-model replica "
+        "each (0/1 = one card); --clip_batch_size must divide evenly",
     )
     return p
 
 
-def main(argv=None, *, device=None):
+def main(argv=None, *, device=None, eval_devices=None):
     """Sweep on `device` (default: the CUDA card; the CPU only when asked).
-    Returns {checkpoint path: summary}."""
+    With --eval_dp N the replicas go on `eval_devices` (default: cuda:0 ..
+    cuda:N-1).  Returns {checkpoint path: summary}."""
     args = build_parser().parse_args(argv)
     dev = resolve_device(device)  # no card and no device: raise before any work
-    if args.eval_dp > 1:
-        raise NotImplementedError(f"--eval_dp {args.eval_dp}: {MULTI_GPU}")
     if args.synthetic:
         source = SyntheticVideoSource(8, num_classes=24, seed=args.seed)
     else:
@@ -89,6 +87,8 @@ def main(argv=None, *, device=None):
         prune=not args.no_prune,
         nan_safe=args.nan_safe,
         device=dev,
+        eval_dp=args.eval_dp,
+        eval_devices=eval_devices,
     )
 
 

@@ -16,9 +16,11 @@ from __future__ import annotations
 from picad_tpu_torch.cli.common import train_main
 
 
-def main(argv=None, *, device=None):
-    """Train on `device` (default: the CUDA card; the CPU only when asked)."""
-    return train_main("ucf101", argv, device=device)
+def main(argv=None, *, device=None, devices=None):
+    """Train on `device` (default: the CUDA card; the CPU only when asked).
+    With several ranks they go on `devices` when given (see
+    `cli.common.train_main`)."""
+    return train_main("ucf101", argv, device=device, devices=devices)
 
 
 if __name__ == "__main__":

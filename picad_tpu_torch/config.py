@@ -104,8 +104,7 @@ class LossConfig:
 
 @dataclasses.dataclass
 class ParallelConfig:
-    # data parallelism over several cards (ROADMAP.md section 1, item 8);
-    # the port trains on one card
+    # data parallelism: one rank per card (parallel/mesh.py)
     mesh_axis: str = "data"
     num_devices: int = 0  # 0 = all visible
 

@@ -28,14 +28,7 @@ import numpy as np
 import torch
 
 from picad_tpu_torch._device import resolve_device
-
-
-def _rank_and_world_size() -> tuple[int, int]:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+from picad_tpu_torch.parallel import mesh
 
 
 def collate(samples: Sequence[dict]) -> dict[str, np.ndarray]:
@@ -61,10 +54,13 @@ class SemiSupervisedBatcher:
         process_count: int | None = None,
         drop_last: bool = False,
     ):
-        """batch_size is the PER-PROCESS batch.  With several processes
-        each draws a disjoint strided shard of both datasets
-        (process_index/process_count default to torch.distributed's rank
-        and world size when it is initialized, else to 0/1)."""
+        """batch_size is the PER-RANK batch (a host's --bs over its
+        ranks).  With several ranks each draws a disjoint strided shard
+        of both datasets by its global rank (process_index/process_count
+        default to the process group's rank and world size, else to
+        0/1), so the global batch is batch_size x world rows and
+        `steps_per_epoch` is the JAX package's for the same n, hosts and
+        host batch: ceil(ceil(n / P) / (bs / 2)) = ceil(ceil(n / PN) / (bs / 2N))."""
         if batch_size % 2:
             raise ValueError("batch is split half labeled / half unlabeled")
         self.labeled = labeled_dataset
@@ -73,7 +69,7 @@ class SemiSupervisedBatcher:
         self.seed = seed
         self.workers = workers
         if process_index is None or process_count is None:
-            process_index, process_count = _rank_and_world_size()
+            process_index, process_count = mesh.rank(), mesh.world_size()
         self.process_index = process_index
         self.process_count = process_count
         # UCF101 reads labeled_vid from ann[5]; JHMDB has no flag and the

@@ -14,10 +14,17 @@ state into ONE eval model, run the full-video protocol (eval.engine)
 over the test set, print accuracy / f-mAP / v-mAP at 0.2 and 0.5, then
 keep only the best-fmAP and best-vmAP checkpoints
 (evaluate_ucf101.py:194-203).
+
+`--eval_dp N` (picad_tpu/eval/runner.py:28-110) puts N replicas of the
+eval model on N devices in one process and splits each padded clip
+batch over them, clip_batch_size / N clips a replica: eval mode has no cross-sample
+reduction (BatchNorm on running statistics, no dropout), so the result
+is the one-device forward's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 import shutil
@@ -63,6 +70,65 @@ def make_padded_forward(
     return forward
 
 
+def replica_devices(eval_dp: int, device, devices=None) -> list[torch.device] | None:
+    """The devices of --eval_dp N's replicas (None for 0/1: one device):
+    `devices` when given (e.g. ["cpu", "cpu"], or one card twice), else
+    cuda:0 .. cuda:N-1, which must be visible (picad_tpu/eval/runner.py:
+    _mesh_or_none)."""
+    if eval_dp in (0, 1):
+        return None
+    if devices is not None:
+        if len(devices) != eval_dp:
+            raise ValueError(f"--eval_dp {eval_dp} with {len(devices)} replica devices")
+        return [torch.device(d) for d in devices]
+    dev = torch.device(device)
+    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if eval_dp > visible:
+        raise ValueError(f"--eval_dp {eval_dp} > {visible} visible devices")
+    return [torch.device("cuda", i) for i in range(eval_dp)]
+
+
+def make_sharded_forward(
+    models: list[torch.nn.Module], *, clip_batch_size: int = 14
+) -> Callable[[np.ndarray], tuple[np.ndarray, np.ndarray]]:
+    """`make_padded_forward` over replicas of one eval model, each on its
+    own device: each padded batch of `clip_batch_size` clips (more clips
+    take several batches) is split into len(models) equal slices, slice
+    i runs on replica i (every replica's forward is enqueued before any
+    result is read back), and the outputs are concatenated in order."""
+    n = len(models)
+    if clip_batch_size % n:
+        raise ValueError(f"clip_batch_size {clip_batch_size} must divide evenly "
+                         f"over the {n} eval replicas")
+    per = clip_batch_size // n
+    fwds = [make_eval_fn(m) for m in models]
+    devices = [next(m.parameters()).device for m in models]
+
+    def on(dev):
+        return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+    def batch(clips: np.ndarray):
+        n_real = clips.shape[0]
+        if n_real < clip_batch_size:
+            pad = np.zeros((clip_batch_size - n_real, *clips.shape[1:]), dtype=clips.dtype)
+            clips = np.concatenate([clips, pad], axis=0)
+        x = np.ascontiguousarray(clips, dtype=np.float32)
+        outs = []
+        for i, (fwd, dev) in enumerate(zip(fwds, devices)):
+            with on(dev):
+                outs.append(fwd(torch.from_numpy(x[i * per:(i + 1) * per]).to(dev)))
+        seg = np.concatenate([o[0].cpu().numpy() for o in outs])
+        scores = np.concatenate([o[1].cpu().numpy() for o in outs])
+        return seg[:n_real], scores[:n_real]
+
+    def forward(clips: np.ndarray):
+        parts = [batch(clips[i:i + clip_batch_size])
+                 for i in range(0, max(clips.shape[0], 1), clip_batch_size)]
+        return (np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]))
+
+    return forward
+
+
 def sweep_checkpoints(
     ckpt_dir: str,
     dataset,
@@ -74,13 +140,18 @@ def sweep_checkpoints(
     log_predictions: bool = False,
     nan_safe: bool = False,
     device=None,
+    eval_dp: int = 0,
+    eval_devices=None,
 ) -> dict:
     """Evaluate every matching checkpoint on `device` (default: the CUDA
     card); prune to the two best.  Returns {checkpoint path: summary}.
 
     One f32 eval model (the JAX CLIs' CapsNet is f32) is
     built once, on the first checkpoint's weights, and each later
-    checkpoint's model state loaded into it, in sorted(glob) order.  log_predictions writes correct_pred_<ckpt>.txt /
+    checkpoint's model state loaded into it, in sorted(glob) order.
+    `eval_dp` > 1 builds that many replicas, on `eval_devices` or on
+    cuda:0 .. cuda:N-1, and splits each clip batch over them
+    (`make_sharded_forward`).  log_predictions writes correct_pred_<ckpt>.txt /
     incorrect_pred_<ckpt>.txt with per-video outcomes, the working
     version of the reference's dead logging code (evaluate_jhmdb.py:
     144-147 writes to never-opened handles)."""
@@ -88,6 +159,7 @@ def sweep_checkpoints(
     from picad_tpu_torch.models.capsules import build_capsnet
 
     dev = resolve_device(device)
+    replicas = replica_devices(eval_dp, dev, eval_devices)
     io = CheckpointIO()
     paths = sorted(glob.glob(os.path.join(ckpt_dir, f"best_model_{split}*")))
     if not paths:
@@ -98,16 +170,20 @@ def sweep_checkpoints(
         return {}
     from picad_tpu_torch.eval.engine import evaluate_dataset
 
-    model = forward = None
+    models, forward = [], None
     results = {}
     for path in paths:
         weights = io.load_model(path)
-        if model is None:
-            model = build_capsnet(weights, num_classes=n_classes,
-                                  compute_dtype=torch.float32, device=dev)
-            forward = make_padded_forward(model, clip_batch_size=clip_batch_size)
+        if not models:
+            models = [build_capsnet(weights, num_classes=n_classes,
+                                    compute_dtype=torch.float32, device=d)
+                      for d in (replicas or [dev])]
+            forward = (make_padded_forward(models[0], clip_batch_size=clip_batch_size)
+                       if replicas is None else
+                       make_sharded_forward(models, clip_batch_size=clip_batch_size))
         else:
-            model.load_state_dict(weights)
+            for model in models:
+                model.load_state_dict(weights)
         del weights
         pred_log = [] if log_predictions else None
         summary = evaluate_dataset(

@@ -18,6 +18,7 @@ from torch import nn
 
 from picad_tpu_torch.ops.bn_stats import group_stats
 from picad_tpu_torch.ops.convops import conv_nd
+from picad_tpu_torch.parallel import mesh
 
 # Tensors with at least this many elements take their train-mode batch
 # statistics from the shifted one-pass reduction (ops/bn_stats.py, the
@@ -48,7 +49,13 @@ class TorchBatchNorm(nn.Module):
     take G sequential EMA steps toward each group's mean and UNBIASED
     variance (in place, without gradient) -- the numerics of G separate
     forwards.  Zero-padded rows of a ragged batch count in the
-    statistics, as in the JAX step."""
+    statistics, as in the JAX step.
+
+    Inside a process group the statistics are the global batch's (exact
+    sync-BN, as XLA makes them over the JAX package's mesh): each rank's
+    per-group (mean, var) are combined over the ranks by
+    `mesh.global_stats`, and the running stats' unbiased factor counts
+    the global batch."""
 
     def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01,
                  stats_groups: int = 1):
@@ -78,6 +85,9 @@ class TorchBatchNorm(nn.Module):
         else:
             mean_g = xg.mean(dim=(1, 3))
             var_g = (xg - mean_g[:, None, :, None]).square().mean(dim=(1, 3))
+        if mesh.is_active():
+            mean_g, var_g = mesh.global_stats(mean_g, var_g)
+            n *= mesh.world_size()
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum

@@ -127,6 +127,20 @@ class _GroupStats(torch.autograd.Function):
         return dx.to(x.dtype).reshape(x.shape), None
 
 
+def combine_group_stats(means: torch.Tensor, vars_: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, biased var) of the union of R parts of equal count, from
+    each part's (mean, biased var) stacked on dim 0 (R, ...): the
+    parallel-variance formula
+
+        mean = mean_r(mean_r),  var = mean_r(var_r) + mean_r((mean_r - mean)^2),
+
+    which cancels nothing, as the shifted reduction above.  Sync-BN
+    combines the ranks' K6 results with it (parallel/mesh.global_stats)."""
+    mean = means.mean(dim=0)
+    return mean, vars_.mean(dim=0) + (means - mean).square().mean(dim=0)
+
+
 def group_stats(x: torch.Tensor, groups: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Differentiable per-group (mean, biased var), each (G, C) f32, of
     x (N, C, *spatial): the kernel's forward, the analytic backward."""

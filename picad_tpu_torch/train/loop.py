@@ -14,6 +14,14 @@ step's metrics stay on the device, and the host reads them only at the
 PrefetchLoader, closed when the epoch ends, so no producer thread or
 pinned slot outlives it.  Checkpoints hold the whole train state
 (checkpoint/manager.py), which adds the resume the reference lacks.
+
+Inside a process group (parallel/mesh.py; the train CLIs start one rank
+per card) the Trainer is one rank of a data-parallel run: its batcher
+draws the rank's strided shard at `cfg.bs` / `cfg.parallel.num_devices`
+rows (a host's batch over its ranks), the step's losses, metrics and
+BN statistics are the global batch's, validation runs the rank's strided
+shard of the validation set in lockstep, and rank 0 alone prints, logs
+and writes checkpoints, into one `save_dir` that it chose.
 """
 
 from __future__ import annotations
@@ -31,10 +39,11 @@ from picad_tpu_torch.config import TrainConfig
 from picad_tpu_torch.data.loader import PrefetchLoader, SemiSupervisedBatcher, collate
 from picad_tpu_torch.eval.metrics import binary_mask_iou
 from picad_tpu_torch.objectives.ramp_ups import exp_rampup
+from picad_tpu_torch.parallel import mesh
 from picad_tpu_torch.train.optimizer import ReduceLROnPlateau
-from picad_tpu_torch.train.state import create_train_state
+from picad_tpu_torch.train.state import broadcast_model, create_train_state
 from picad_tpu_torch.train.step import make_train_step, make_val_step
-from picad_tpu_torch.utils.logging import MetricLogger
+from picad_tpu_torch.utils.logging import MetricLogger, print0
 from picad_tpu_torch.utils.profiling import StepTimer, trace_context
 
 I3D_TENSORS = 45 * 5  # a Mixed_4f-truncated I3D: 45 Unit3Ds x (conv kernel + 4 BN tensors)
@@ -69,10 +78,8 @@ class Trainer:
         self.cfg = cfg
         cfg.validate()  # fail fast before any model is built
         self.device = dev = resolve_device(device)
-        if cfg.parallel.num_devices > 1:
-            raise NotImplementedError(
-                f"--num_devices {cfg.parallel.num_devices}: the port trains on one card; "
-                "data parallelism waits for multi-GPU support (ROADMAP.md section 1, item 8)")
+        self.world = mesh.world_size()
+        self.rank_bs = self._rank_batch(cfg)
         self.state = create_train_state(
             seed=cfg.seed,
             device=dev,
@@ -88,6 +95,7 @@ class Trainer:
         )
         if cfg.model.pretrained_i3d:
             self._load_pretrained_i3d(cfg.model.pretrained_i3d)
+        broadcast_model(self.state)  # the ranks start from rank 0's weights
 
         # Card-resident video cache (data/device_cache.py): the datasets
         # carry `.cache`, batches are clip metadata, and the loader's
@@ -111,8 +119,10 @@ class Trainer:
         self.batcher = SemiSupervisedBatcher(
             labeled_dataset,
             unlabeled_dataset,
-            batch_size=cfg.bs,
+            batch_size=self.rank_bs,
             seed=cfg.seed,
+            process_index=mesh.rank(),
+            process_count=self.world,
             workers=cfg.data.workers,
             force_stream_flags=cfg.data.dataset == "jhmdb",
         )
@@ -128,8 +138,11 @@ class Trainer:
         self._profiled = False
         self.epoch_stats: list[dict] = []  # each epoch run: wall, clips/s, mean loss
 
-        save_dir = os.path.join(cfg.save_root, cfg.exp_id, time.strftime("%m-%d-%H-%M"))
-        os.makedirs(save_dir, exist_ok=True)
+        # rank 0's stamp: the ranks' clocks can straddle a minute
+        save_dir = mesh.broadcast_object(
+            os.path.join(cfg.save_root, cfg.exp_id, time.strftime("%m-%d-%H-%M")))
+        if mesh.is_main():
+            os.makedirs(save_dir, exist_ok=True)
         self.save_dir = save_dir
         # derived run name like the reference (main_jhmdb.py:413-415)
         self.logger = MetricLogger(
@@ -138,6 +151,20 @@ class Trainer:
         )
         self.best_val = BestCheckpointPolicy(save_dir, "val", cfg.keep_all_after_epoch)
         self.best_train = BestCheckpointPolicy(save_dir, "train", cfg.keep_all_after_epoch)
+
+    def _rank_batch(self, cfg: TrainConfig) -> int:
+        """This rank's rows a step: the host batch over its ranks."""
+        if not mesh.is_active():
+            if cfg.parallel.num_devices > 1:
+                raise ValueError(
+                    f"--num_devices {cfg.parallel.num_devices}: a Trainer is one rank; start "
+                    "the ranks with cli.common.train_main (parallel.mesh.launch)")
+            return cfg.bs
+        n = cfg.parallel.num_devices
+        if n < 1 or self.world % n:
+            raise ValueError(f"cfg.parallel.num_devices={n}: set it to the ranks a host "
+                             f"runs, a divisor of the world size {self.world}")
+        return mesh.check_rank_batch(cfg.bs, n)
 
     def _load_pretrained_i3d(self, path: str) -> None:
         """Load a reference-format I3D state dict (rgb_charades.pt: keys
@@ -166,7 +193,7 @@ class Trainer:
                     raise ValueError(f"pretrained I3D tensor {k}: {tuple(v.shape)}, "
                                      f"the model's is {tuple(own[k].shape)}")
                 own[k].copy_(v)
-        print(f"Loaded I3D pretrained weights from {path} for {n} tensors")
+        print0(f"Loaded I3D pretrained weights from {path} for {n} tensors")
 
     # ---- epochs ----
 
@@ -176,11 +203,12 @@ class Trainer:
         loader = PrefetchLoader(self.batcher.epoch(epoch), device=self.device,
                                 prefetch=cfg.data.prefetch, put_fn=self._assemble_put)
         steps = self.batcher.steps_per_epoch()
-        timer = StepTimer(clips_per_step=cfg.bs, n_chips=1)
+        global_bs = self.rank_bs * self.world
+        timer = StepTimer(clips_per_step=global_bs, n_chips=self.world)
         pending: list[dict] = []  # device metrics not yet read
         running: list[dict] = []  # host metrics of the epoch's steps so far
         t0 = time.time()
-        profiling = bool(cfg.profile_dir) and not self._profiled
+        profiling = bool(cfg.profile_dir) and not self._profiled and mesh.is_main()
         self._profiled = True
         trace = None
         it = iter(loader)
@@ -204,10 +232,10 @@ class Trainer:
             it.close()  # stops and joins the loader's producer thread
         running += _read_metrics(pending)
         wall = time.time() - t0
-        print("Training time: ", wall)
+        print0("Training time: ", wall)
         mean_loss = float(np.mean([m["loss"] for m in running])) if running else float("inf")
         self.epoch_stats.append({"epoch": epoch, "steps": len(running), "seconds": wall,
-                                 "clips_per_s": len(running) * cfg.bs / wall,
+                                 "clips_per_s": len(running) * global_bs / wall,
                                  "loss": mean_loss})
         return mean_loss
 
@@ -215,13 +243,13 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         trace.__exit__(None, None, None)
-        print(f"Profiler trace written to {self.cfg.profile_dir}")
+        print0(f"Profiler trace written to {self.cfg.profile_dir}")
 
     def _log_train(self, epoch, batch_id, steps, running, timer) -> None:
         cfg = self.cfg
         host = {k: float(np.mean([m[k] for m in running])) for k in running[0]}
         tput = timer.report()
-        print(
+        print0(
             f"[TRAIN] epoch-{epoch}/{cfg.epochs}, "
             f"batch-{batch_id + 1}/{steps}, "
             f"loss-{host['loss']:.3f}, acc-{host['acc']:.3f}\t"
@@ -248,37 +276,47 @@ class Trainer:
         total_iou, valid_iou = 0.0, 0
         t0 = time.time()
         n = len(self.val_dataset)
-        bs = cfg.bs
-        steps = max(-(-n // bs), 1)
+        bs = self.rank_bs
+        # Each rank validates its strided shard; the val step reduces the
+        # losses and accuracy over the global batch (row-masked), so they
+        # come back identical on every rank, and the ranks run the same
+        # number of steps, a short shard padding with all-pad batches
+        # (picad_tpu/train/loop.py:289-331).
+        r, world = mesh.rank(), self.world
+        mine = list(range(r, n, world))
+        steps = mesh.steps_lockstep(n, world, bs)
         # decode (cv2/ffmpeg) releases the GIL, so the fetches of a batch
         # overlap each other and the running val step
         with ThreadPoolExecutor(max_workers=max(cfg.data.workers, 1)) as pool:
             for s in range(steps):
-                idx = list(range(s * bs, min((s + 1) * bs, n)))
+                idx = mine[s * bs:(s + 1) * bs]
                 samples = list(pool.map(self.val_dataset.__getitem__, idx))
                 n_real = len(samples)
-                if n_real == 0:  # an empty validation set: one all-pad batch
+                if n_real == 0:  # a short shard or an empty set: one all-pad batch
                     samples = [self.val_dataset.zero_sample()]
                 while len(samples) < bs:  # zero-pad the ragged final batch
                     samples.append({k: np.zeros_like(v) for k, v in samples[0].items()})
                 batch = collate(samples)
                 row_mask = np.zeros((bs,), np.float32)
                 row_mask[:n_real] = 1.0
-                gt_np = batch["loc_msk"][..., 0]
-                seg_bin, metrics = self.val_step(self.state, batch, row_mask)
+                gt_np = batch["loc_msk"][..., 0]  # host copy before the move
+                batch["row_mask"] = row_mask
+                batch = mesh.put_global_batch(batch, self.device)
+                seg_bin, metrics = self.val_step(self.state, batch, batch["row_mask"])
                 totals.append(metrics["loss"])
                 accs.append(metrics["acc"])
                 seg_np = seg_bin.cpu().numpy()
-                for a in range(n_real):
+                for a in range(n_real):  # the IoU of this rank's own rows
                     iou = binary_mask_iou(gt_np[a], seg_np[a])
                     if iou == iou:
                         total_iou += iou
                         valid_iou += 1
-        print("Validation time: ", time.time() - t0)
+        print0("Validation time: ", time.time() - t0)
+        total_iou, valid_iou = mesh.all_reduce_floats([total_iou, valid_iou], self.device)
         avg_iou = total_iou / max(valid_iou, 1)
         val_loss = float(np.mean(torch.stack(totals).double().cpu().numpy()))
         val_acc = float(np.mean(torch.stack(accs).double().cpu().numpy()))
-        print(
+        print0(
             f"[VAL] epoch-{epoch}, loss-{val_loss:.3f}, "
             f"acc-{val_acc:.3f} [IOU ] {avg_iou:.3f}",
             flush=True,
@@ -295,7 +333,7 @@ class Trainer:
         # run reduces the LR at the SAME epoch an unbroken run would
         self.state.load_scheduler(self.scheduler)
         next_epoch = self.state.epoch + 1
-        print(f"Resumed from {path} at epoch {next_epoch}")
+        print0(f"Resumed from {path} at epoch {next_epoch}")
         return next_epoch
 
     def fit(self, start_epoch: int = 1) -> None:
@@ -303,7 +341,7 @@ class Trainer:
         try:
             from tqdm import tqdm
 
-            epochs = tqdm(epochs)
+            epochs = tqdm(epochs, disable=not mesh.is_main())
         except ImportError:
             pass
         try:
@@ -318,12 +356,12 @@ class Trainer:
                 new_lr = self.scheduler.step(train_loss)
                 if abs(new_lr - self.state.learning_rate()) > 1e-6 * new_lr:
                     self.state.with_learning_rate(new_lr)
-                    print(f"ReduceLROnPlateau: lr -> {new_lr:.2e}")
+                    print0(f"ReduceLROnPlateau: lr -> {new_lr:.2e}")
                 self.state.epoch = e
                 self.state.with_scheduler(self.scheduler)
                 if self.best_val.maybe_save(e, val_loss, self.state):
-                    print("Yay!!! Got the val loss down...")
+                    print0("Yay!!! Got the val loss down...")
                 if self.best_train.maybe_save(e, train_loss, self.state):
-                    print("Yay!!! Got the train loss down...")
+                    print0("Yay!!! Got the train loss down...")
         finally:
             self.logger.close()

@@ -10,6 +10,7 @@ import torch
 
 from picad_tpu_torch._device import resolve_device
 from picad_tpu_torch.models.capsules import CapsNet, build_train_capsnet
+from picad_tpu_torch.parallel import mesh
 from picad_tpu_torch.train.optimizer import make_optimizer
 
 
@@ -70,9 +71,21 @@ def create_train_state(
     `state_dict` or seeded with `seed`; `model_kwargs` are its options,
     e.g. bn_groups, dropout_rate, compute_dtype), the optimizer of
     `make_optimizer` (Adam with `eps`; AdamW with `weight_decay`), and
-    the dropout generator, seeded with `seed` on the same device."""
+    the dropout generator, seeded with `seed` on the same device.
+
+    Inside a process group every rank builds the same weights from
+    `seed`, and its dropout generator is seeded from (seed, rank)
+    (`mesh.rank_seed`; rank 0 keeps `seed`)."""
     dev = resolve_device(device)
     model = build_train_capsnet(state_dict, seed=seed, device=dev, **model_kwargs)
     optimizer = make_optimizer(model.parameters(), lr, eps=eps, weight_decay=weight_decay)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = torch.Generator(device=dev).manual_seed(mesh.rank_seed(seed, mesh.rank()))
     return TrainState(model, optimizer, generator)
+
+
+def broadcast_model(state: TrainState) -> TrainState:
+    """Every rank takes rank 0's parameters and BN running stats (after a
+    load that each rank made from its own copy of a file, such as
+    --pretrained_i3d): the ranks start equal.  Nothing without a group."""
+    mesh.broadcast_tensors(list(state.model.parameters()) + list(state.model.buffers()))
+    return state

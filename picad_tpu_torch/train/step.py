@@ -19,6 +19,13 @@ backward and the optimizer update.
 - `row_mask` marks real rows of a zero-padded ragged batch: every loss
   reduction skips padded rows, while BatchNorm statistics include them,
   as in the JAX step.
+- Inside a process group (parallel/mesh.py) each rank holds its rows of
+  the global batch, and every sum the JAX package reduces over the
+  global batch is summed over the ranks (`mesh.global_sum`): the
+  masked numerators, Dice's (or IoU's) three sums, SpreadLoss's and the
+  counts.  Every rank then computes the global losses and metrics, and
+  the gradients are averaged over the ranks before the optimizer
+  (`mesh.all_reduce_grads`).  Without a group none of that launches.
 
 Batches are dicts of numpy arrays or tensors in the JAX package's
 layouts: `data` (B, T, H, W, 3) uint8 (normalized and flipped on the
@@ -44,6 +51,7 @@ from picad_tpu_torch.config import LossConfig
 from picad_tpu_torch.models.i3d import s2d_pack
 from picad_tpu_torch.objectives.losses import weighted_mse_outer
 from picad_tpu_torch.ops.masks import pixelwise_cyclic_variance, pixelwise_gradient
+from picad_tpu_torch.parallel.mesh import all_reduce_grads, global_sum
 
 
 def _to(a, device: torch.device) -> torch.Tensor:
@@ -97,28 +105,36 @@ def _rows(row_mask: torch.Tensor, ndim: int) -> torch.Tensor:
     return row_mask.reshape(-1, *([1] * (ndim - 1)))
 
 
+def _count(row_mask):
+    """The global batch's real rows, at least 1."""
+    return torch.clamp(global_sum(row_mask.sum()), min=1.0)
+
+
 def _masked_bce(logits, targets, row_mask):
     """BCEWithLogitsLoss over rows where row_mask == 1."""
     x, z = logits, targets
     elem = torch.clamp(x, min=0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
-    denom = torch.clamp(row_mask.sum(), min=1.0) * (elem.numel() // elem.shape[0])
-    return (elem * _rows(row_mask, elem.ndim)).sum() / denom
+    denom = _count(row_mask) * (elem.numel() // elem.shape[0])
+    return global_sum((elem * _rows(row_mask, elem.ndim)).sum()) / denom
+
+
+def _dice_sums(logits, targets, row_mask):
+    """(inter, p, t) over the labelled rows of the global batch."""
+    p = torch.sigmoid(logits)
+    m = _rows(row_mask, logits.ndim)
+    return (global_sum((p * targets * m).sum()), global_sum((p * m).sum()),
+            global_sum((targets * m).sum()))
 
 
 def _masked_dice(logits, targets, row_mask, smooth=1.0):
     """DiceLoss over the flattened labelled rows (losses.py:40-57)."""
-    p = torch.sigmoid(logits)
-    m = _rows(row_mask, logits.ndim)
-    inter = (p * targets * m).sum()
-    return 1.0 - (2.0 * inter + smooth) / ((p * m).sum() + (targets * m).sum() + smooth)
+    inter, p, t = _dice_sums(logits, targets, row_mask)
+    return 1.0 - (2.0 * inter + smooth) / (p + t + smooth)
 
 
 def _masked_iou(logits, targets, row_mask, smooth=1.0):
-    p = torch.sigmoid(logits)
-    m = _rows(row_mask, logits.ndim)
-    inter = (p * targets * m).sum()
-    union = (p * m).sum() + (targets * m).sum() - inter
-    return 1.0 - (inter + smooth) / (union + smooth)
+    inter, p, t = _dice_sums(logits, targets, row_mask)
+    return 1.0 - (inter + smooth) / (p + t - inter + smooth)
 
 
 def _masked_spread(scores, labels, row_mask, m_min=0.2, m_max=0.9):
@@ -126,8 +142,8 @@ def _masked_spread(scores, labels, row_mask, m_min=0.2, m_max=0.9):
     margin = m_min + (m_max - m_min) * 0.0
     at = torch.gather(scores, 1, labels.reshape(-1, 1))
     per = torch.clamp(margin - (at - scores), min=0.0).square()
-    n = torch.clamp(row_mask.sum(), min=1.0)
-    return ((per * row_mask[:, None]).sum() / n - margin**2) / n
+    n = _count(row_mask)
+    return (global_sum((per * row_mask[:, None]).sum()) / n - margin**2) / n
 
 
 _LOC_LOSS = {"dice": _masked_dice, "iou": _masked_iou}
@@ -145,10 +161,10 @@ def compute_losses(output, flip_op, scores, seg_gt, action, flags, row_mask,
     cls_loss = _masked_spread(scores, action, lm, loss_cfg.spread_m_min, loss_cfg.spread_m_max)
 
     rm_b = _rows(row_mask, output.ndim)
-    n_real = torch.clamp(row_mask.sum(), min=1.0)
+    n_real = _count(row_mask)
 
     def masked_mean(x):
-        return (x * rm_b).sum() / (n_real * (x.numel() // x.shape[0]))
+        return global_sum((x * rm_b).sum()) / (n_real * (x.numel() // x.shape[0]))
 
     flipped_pred = torch.flip(flip_op, dims=[3])  # undo the spatial flip
     diff_sq = (flipped_pred - output) ** 2
@@ -178,7 +194,7 @@ def compute_losses(output, flip_op, scores, seg_gt, action, flags, row_mask,
 
     total = loss_cfg.wt_loc * loc_loss + loss_cfg.wt_cls * cls_loss + loss_cfg.wt_cons * cons
     correct = (scores.argmax(dim=1) == action.reshape(-1)).to(torch.float32)
-    acc = (correct * row_mask).sum() / n_real
+    acc = global_sum((correct * row_mask).sum()) / n_real
     metrics = {"loss": total, "loss_seg": loc_loss, "loss_cls": cls_loss,
                "loss_consistency": cons, "acc": acc}
     return total, metrics
@@ -250,6 +266,7 @@ def make_train_step(loss_cfg: LossConfig, *, device=None, grad_metrics: bool = F
         total, metrics = compute_losses(output, flip_op, scores, seg_gt, action, flags,
                                         row_mask, loss_cfg, wt_ramp)
         total.backward()
+        all_reduce_grads(model.parameters())  # nothing without a process group
         if grad_metrics:
             metrics["grad_norm"] = global_grad_norm(model.parameters())
         optimizer.step()
@@ -278,7 +295,7 @@ def make_val_step(loss_cfg: LossConfig, *, device=None):
                                   loss_cfg.spread_m_max)
         loc = _masked_bce(seg, seg_gt, row_mask) + loc_loss_fn(seg, seg_gt, row_mask)
         correct = (scores.argmax(dim=1) == action.reshape(-1)).to(torch.float32)
-        acc = (correct * row_mask).sum() / torch.clamp(row_mask.sum(), min=1.0)
+        acc = global_sum((correct * row_mask).sum()) / _count(row_mask)
         metrics = {"loss": loc + cls_loss, "loss_seg": loc, "loss_cls": cls_loss, "acc": acc}
         return (seg > 0).to(torch.float32), metrics
 

@@ -5,7 +5,12 @@ through tensorboardX every `--pf` batches (main_ucf101.py:202-214) and
 wandb on JHMDB (main_jhmdb.py:204-210).  One MetricLogger fans out to an
 append-only `metrics.jsonl` (the machine-readable run history) and, each
 only where it imports, to TensorBoard (torch.utils.tensorboard) and
-wandb.  The caller prints to stdout.
+wandb.  The caller prints to stdout, through `print0`.
+
+Inside a process group only rank 0 prints and logs: every rank's
+metrics are the global batch's, and one file per run is enough.  The
+JAX package's logger has no such gate (each host writes its own);
+ROADMAP.md section 3 records the divergence.
 """
 
 from __future__ import annotations
@@ -16,6 +21,14 @@ import time
 from typing import Iterable, Mapping
 
 import torch
+
+from picad_tpu_torch.parallel import mesh
+
+
+def print0(*args, **kwargs) -> None:
+    """print on rank 0 (or without a process group); nothing elsewhere."""
+    if mesh.is_main():
+        print(*args, **kwargs)
 
 
 class MetricLogger:
@@ -28,10 +41,12 @@ class MetricLogger:
         run_name: str | None = None,
         wandb_project: str = "picad_tpu",
     ):
-        os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
+        self._jsonl = self._tb = self._wandb = None
+        if not mesh.is_main():  # rank 0 logs for the run
+            return
+        os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-        self._tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -39,7 +54,6 @@ class MetricLogger:
                 pass
             else:
                 self._tb = SummaryWriter(log_dir)
-        self._wandb = None
         if use_wandb:
             try:
                 import wandb
@@ -61,6 +75,8 @@ class MetricLogger:
         `named_parameters()`) to every sink: the functional counterpart of
         the reference's `wandb.watch(model)` (main_jhmdb.py:422).  The
         norms are computed where the tensors lie and read in one copy."""
+        if self._jsonl is None:
+            return
         names, norms = [], []
         for name, t in named_tensors:
             names.append(f"{prefix}/{name.replace('.', '/')}")
@@ -69,6 +85,8 @@ class MetricLogger:
         self.log(f"{prefix}_norms", dict(zip(names, values)), step)
 
     def log(self, tag: str, scalars: Mapping[str, float], step: int) -> None:
+        if self._jsonl is None:
+            return
         record = {"tag": tag, "step": step, "time": time.time(), **{
             k: float(v) for k, v in scalars.items()
         }}
@@ -80,6 +98,8 @@ class MetricLogger:
             self._wandb.log({f"{tag}/{k}": float(v) for k, v in scalars.items()})
 
     def close(self) -> None:
+        if self._jsonl is None:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

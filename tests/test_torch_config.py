@@ -129,21 +129,32 @@ def test_ramp_schedules_match_jax(name):
 
 
 def test_multi_process_flag_raises():
+    """--num_processes > 1 needs a --coordinator and a --process_id in
+    range; one process on one rank joins no process group."""
     args = build_parser("ucf101").parse_args(["--num_processes", "2", "--process_id", "0"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="coordinator"):
         maybe_initialize_distributed(args)
-    maybe_initialize_distributed(build_parser("ucf101").parse_args(["--num_processes", "1"]))
+    args = build_parser("ucf101").parse_args(
+        ["--num_processes", "2", "--process_id", "2", "--coordinator", "localhost:1"])
+    with pytest.raises(ValueError, match="process_id"):
+        maybe_initialize_distributed(args)
+    assert not maybe_initialize_distributed(
+        build_parser("ucf101").parse_args(["--num_processes", "1"]))
 
 
 def test_multi_device_flags_raise(tmp_path):
-    from picad_tpu_torch.cli import evaluate_jhmdb, evaluate_ucf101
+    """The data-parallel flags' gates: a Trainer is one rank (several
+    ranks come from the launcher), a host batch must give each rank an
+    even count, and --eval_dp cannot exceed the visible devices."""
+    from picad_tpu_torch.cli import evaluate_jhmdb, evaluate_ucf101, train_ucf101
     from picad_tpu_torch.train.loop import Trainer
 
-    cfg = args_to_config(build_parser("ucf101").parse_args(
-        ["--synthetic", "--bs", "2", "--num_devices", "2", "--save_root", str(tmp_path)]),
-        "ucf101")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    argv = ["--synthetic", "--bs", "2", "--num_devices", "2", "--save_root", str(tmp_path)]
+    cfg = args_to_config(build_parser("ucf101").parse_args(argv), "ucf101")
+    with pytest.raises(ValueError, match="one rank"):
         Trainer(cfg, labeled_dataset=None, unlabeled_dataset=None, device="cpu")
+    with pytest.raises(ValueError, match="even count"):
+        train_ucf101.main(argv, device="cpu")
     for cli in (evaluate_ucf101, evaluate_jhmdb):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="visible devices"):
             cli.main(["--ckpt", str(tmp_path), "--synthetic", "--eval_dp", "2"], device="cpu")

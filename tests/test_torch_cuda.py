@@ -751,3 +751,86 @@ def test_sweep_checkpoints_on_card(card, tmp_path):
     a, b = results.values()
     np.testing.assert_array_equal(a["fmAP"], b["fmAP"])
     assert sorted(os.listdir(tmp_path)) == ["best_model_train_loss_1"]
+
+
+# ---- the data-parallel path (parallel/mesh.py) on the card ----------------
+
+
+def test_sync_bn_through_k6_two_ranks_on_one_card(card, tmp_path):
+    """Two gloo ranks on cuda:0, each with 2 rows of each of 2 views, every
+    BN on K6 (BN_ONEPASS_MIN 0): the values, gradients and running stats
+    of one process's K6 BatchNorm on the whole batch."""
+    import torch_parallel_ranks as ranks  # tests/, which pytest puts on sys.path
+
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((8, 16, 2, 12, 12)) * 3 + 40).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    got = [g["onepass"] for g in ranks.run_ranks(
+        "sync_bn", 2, tmp_path, {"x": x, "dy": dy, "groups": 2}, device="cuda:0")]
+    launches = bn_stats.launches
+    ref = ranks.sync_bn(torch.from_numpy(x).to(card), torch.from_numpy(dy).to(card), 2, 0)
+    assert bn_stats.launches > launches  # the reference ran K6 too
+
+    def near(a, b, tol=1e-5):
+        return float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+    for key in ("y", "dx"):
+        assert near(ranks.from_views([g[key] for g in got]), ref[key]), key
+    for key in ("dweight", "dbias"):
+        assert near(got[0][key] + got[1][key], ref[key]), key
+    for key in ("mean", "var", "running_mean", "running_var"):
+        assert torch.equal(got[0][key], got[1][key]), key
+        assert near(got[0][key], ref[key]), key
+    assert near(ranks.from_views([g["dx_stats"] for g in got]), 2 * ref["dx_stats"])
+
+
+def test_nccl_world_one_is_the_identity(card):
+    """A one-rank NCCL group runs every collective of the path; K6's sync-BN,
+    the global losses and the gradient average then equal the results
+    without a group, bit for bit."""
+    import torch.distributed as dist
+
+    from picad_tpu_torch.config import LossConfig
+    from picad_tpu_torch.models import layers
+    from picad_tpu_torch.parallel import mesh
+    from picad_tpu_torch.train.step import compute_losses
+
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((8, 64, 2, 28, 28), device=card, generator=g) * 2 + 5
+    seg = torch.randn((4, 8, 16, 16), device=card, generator=g)
+    scores = torch.rand((4, 24), device=card, generator=g)
+    gt = (torch.rand((4, 8, 16, 16), device=card, generator=g) > 0.6).float()
+    action = torch.tensor([1, 2, 3, 4], device=card)
+    flags = torch.tensor([1.0, 0.0, 1.0, 0.0], device=card)
+    rows = torch.tensor([1.0, 1.0, 1.0, 0.0], device=card)
+
+    def run():
+        bn = layers.TorchBatchNorm(64, stats_groups=2).to(card)
+        xi = x.clone().requires_grad_()
+        y = bn(xi)
+        ins = [t.clone().requires_grad_() for t in (seg, seg.flip(3), scores)]
+        total, metrics = compute_losses(*ins, gt, action, flags, rows,
+                                        LossConfig(bv=True, gv=True, n_frames=5), 0.5)
+        (total + y.square().mean()).backward()
+        params = [torch.nn.Parameter(torch.zeros(3, device=card)) for _ in range(2)]
+        for k, p in enumerate(params):
+            p.grad = torch.full((3,), float(k + 1), device=card)
+        mesh.all_reduce_grads(params)
+        return ([y.detach(), xi.grad, bn.running_mean, bn.running_var, total.detach()]
+                + [t.grad for t in ins] + [p.grad for p in params])
+
+    saved = layers.BN_ONEPASS_MIN
+    layers.BN_ONEPASS_MIN = 0
+    try:
+        alone = run()
+        mesh.initialize_distributed(f"tcp://localhost:{mesh.free_port()}", 1, 0,
+                                    device="cuda:0", backend="nccl")
+        try:
+            assert mesh.is_active() and mesh.world_size() == 1
+            grouped = run()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        layers.BN_ONEPASS_MIN = saved
+    for i, (a, b) in enumerate(zip(alone, grouped)):
+        assert torch.equal(a, b), i

@@ -57,6 +57,12 @@ trainer_slice = {
     "picad_tpu_torch.cli.evaluate_jhmdb"}
 assert trainer_slice <= set(names), trainer_slice - set(names)  # imported above
 
+import torch.distributed as dist
+
+parallel_slice = {"picad_tpu_torch.parallel", "picad_tpu_torch.parallel.mesh"}
+assert parallel_slice <= set(names), parallel_slice - set(names)  # imported above
+assert not dist.is_initialized()  # no process group at import
+
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "picad_tpu", "cv2"))
 assert not foreign, foreign  # cv2 too: the card's machine has no OpenCV
