@@ -7,8 +7,9 @@ state dict (a reference `.pth`, or tests/sd_fixtures.py) loads directly.
 {"params", "batch_stats"} tree as numpy and returns the reference-key
 state dict, so both packages can run on the same weights.  The key
 mapping is this module's own copy (the port imports nothing of
-picad_tpu), limited to what this slice builds: I3D to Mixed_4f,
-PrimaryCaps, ConvCaps and the decoder.
+picad_tpu): the CapsNet's (I3D to Mixed_4f, PrimaryCaps, ConvCaps and
+the decoder), and the I3D's own, to Mixed_5c, as the JAX converter has
+them (`i3d_key_mapping`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 _I3D_CONVS = ("Conv3d_1a_7x7", "Conv3d_2b_1x1", "Conv3d_2c_3x3")
 _I3D_MIXED = ("Mixed_3b", "Mixed_3c", "Mixed_4b", "Mixed_4c", "Mixed_4d",
               "Mixed_4e", "Mixed_4f")
+_I3D_TAIL = ("Mixed_5b", "Mixed_5c")  # past the CapsNet's encoder
 _BRANCHES = ("b0", "b1a", "b1b", "b2a", "b2b", "b3b")
 
 # JAX layout -> torch layout (inverse of torch_convert.py:59-72, :148)
@@ -44,15 +46,24 @@ def _unit3d_rows(torch_prefix: str, jax_path: tuple[str, ...]):
     ]
 
 
+def i3d_key_mapping(prefix: str = "", tail: bool = False) -> list:
+    """(reference key, layout kind, flax path) for the I3D's Unit3Ds to
+    Mixed_4f, or to Mixed_5c with `tail`; keys carry `prefix`, flax paths
+    are rooted at "conv1" (picad_tpu/checkpoint/torch_convert.py:
+    _i3d_mapping)."""
+    rows = []
+    for ep in _I3D_CONVS:
+        rows += _unit3d_rows(f"{prefix}{ep}", ("conv1", ep))
+    for ep in _I3D_MIXED + (_I3D_TAIL if tail else ()):
+        for br in _BRANCHES:
+            rows += _unit3d_rows(f"{prefix}{ep}.{br}", ("conv1", ep, br))
+    return rows
+
+
 def capsnet_key_mapping() -> list[tuple[str, str, tuple[str, ...]]]:
     """(reference key, layout kind, flax path) for every tensor the
     port's CapsNet holds."""
-    rows = []
-    for ep in _I3D_CONVS:
-        rows += _unit3d_rows(f"conv1.{ep}", ("conv1", ep))
-    for ep in _I3D_MIXED:
-        for br in _BRANCHES:
-            rows += _unit3d_rows(f"conv1.{ep}.{br}", ("conv1", ep, br))
+    rows = i3d_key_mapping("conv1.")
     rows += [
         ("primary_caps.pose.weight", "conv2d", ("params", "primary_caps", "pose_kernel")),
         ("primary_caps.pose.bias", "vec", ("params", "primary_caps", "pose_bias")),
@@ -73,11 +84,12 @@ def capsnet_key_mapping() -> list[tuple[str, str, tuple[str, ...]]]:
     return rows
 
 
-def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
+def from_jax_variables(variables: Mapping[str, Any], rows=None) -> dict[str, np.ndarray]:
     """flax {"params", "batch_stats"} tree (numpy leaves) -> reference-key
-    state dict of f32 numpy arrays.  Raises KeyError on a missing leaf."""
+    state dict of f32 numpy arrays, over `rows` (default: the CapsNet's,
+    `capsnet_key_mapping`).  Raises KeyError on a missing leaf."""
     sd = {}
-    for key, kind, path in capsnet_key_mapping():
+    for key, kind, path in capsnet_key_mapping() if rows is None else rows:
         node = variables
         for p in path:
             node = node[p]

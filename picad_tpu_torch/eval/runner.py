@@ -55,8 +55,17 @@ def make_padded_forward(
     """Bind the eval forward to numpy clip batches of at most
     `clip_batch_size` on the model's device, zero-padding a ragged batch
     to `clip_batch_size` and dropping the padding rows."""
-    fwd = make_eval_fn(model)
-    device = next(model.parameters()).device
+    return pad_to_batch(make_eval_fn(model), next(model.parameters()).device,
+                        clip_batch_size=clip_batch_size)
+
+
+def pad_to_batch(
+    fwd: Callable, device, *, clip_batch_size: int = 14
+) -> Callable[[np.ndarray], tuple[np.ndarray, np.ndarray]]:
+    """Bind `fwd` (a (clip_batch_size, 8, H, W, 3) f32 tensor on `device`
+    -> (sigmoid seg, class scores) tensors: `make_eval_fn`'s or a serving
+    artifact's) to numpy clip batches of at most `clip_batch_size`,
+    zero-padding a ragged batch and dropping the padding rows."""
 
     def forward(clips: np.ndarray):
         n = clips.shape[0]

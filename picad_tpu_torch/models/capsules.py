@@ -17,7 +17,7 @@ before `thresh_epoch` and the argmax one-hot from then on (the
 pseudo-label gate, picad_tpu/models/capsules.py:329-345).  Train mode
 also draws the channel dropout of the encoder output and of the fused
 head from an explicit generator.  ConvCaps has the K=(1,1) mode CapsNet
-uses; the `w_shared` and general-K modes wait (ROADMAP.md).
+uses and the general-K and `w_shared` (class capsule) modes it does not.
 """
 
 from __future__ import annotations
@@ -64,35 +64,97 @@ class PrimaryCaps(nn.Module):
 
 
 class ConvCaps(nn.Module):
-    """Matrix-capsule layer with EM routing, K=(1,1) (reference :52-331):
-    one vote einsum per position, then EM routing per position."""
+    """Matrix-capsule layer with EM routing (reference :52-331), in the
+    three modes of picad_tpu/models/capsules.py:122-230:
+
+    - K=(1,1) convolutional (the mode CapsNet uses): one vote einsum per
+      position, then EM routing per position;
+    - general K convolutional: the KxK patches of capsules (stride
+      `stride`, VALID) route jointly, patch-major then capsule type.  The
+      reference's generic-K path is dead code whose permute+view
+      (:228, :301) scrambles the patch order; like the JAX package, this
+      is the correct patch order, not that scramble;
+    - `w_shared` class capsules (reference :310-329): every position
+      shares one transformation matrix per capsule type, `coor_add` adds
+      the scaled coordinates (reference add_coord :270-288: vote entry 0
+      += i/h, entry 1 += j/w), and the layer returns only the C output
+      activations (B, C).
+
+    `weights` is the reference's (1, K0*K1*Bi, C, P, P) ((1, Bi, C, P, P)
+    at K=(1,1) and when shared)."""
 
     def __init__(self, in_caps=32, out_caps=24, pose_size=4, iters=3,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, kernel=(1, 1), stride=(1, 1),
+                 eps=1e-8, lam=1e-6, coor_add=False, w_shared=False):
         super().__init__()
         P = pose_size
         self.in_caps, self.out_caps, self.P, self.iters = in_caps, out_caps, P, iters
         self.compute_dtype = compute_dtype
+        self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.eps, self.lam = eps, lam
+        self.coor_add, self.w_shared = coor_add, w_shared
+        taps = 1 if w_shared else self.kernel[0] * self.kernel[1]
         self.beta_u = nn.Parameter(torch.zeros(out_caps, P * P))
         self.beta_a = nn.Parameter(torch.zeros(out_caps))
-        self.weights = nn.Parameter(torch.zeros(1, in_caps, out_caps, P, P))
+        self.weights = nn.Parameter(torch.zeros(1, taps * in_caps, out_caps, P, P))
 
     def forward(self, x):
-        """x (B, h, w, Bi*(P*P + 1)) -> (B, h, w, C*P*P + C)."""
+        """x (B, h, w, Bi*(P*P + 1)) -> (B, oh, ow, C*P*P + C), or (B, C)
+        activations when `w_shared`."""
         P, Bi, C = self.P, self.in_caps, self.out_caps
         psize = P * P
         b, h, w, c = x.shape
         assert c == Bi * (psize + 1), (c, Bi, psize)
-        cdt = self.compute_dtype
-        pose = x[..., : Bi * psize].reshape(b * h * w, Bi, P, P)
-        act = x[..., Bi * psize :].reshape(b * h * w, Bi, 1)
-        v = torch.einsum(
-            "nipq,ijqr->nijpr", pose.to(cdt), self.weights[0].to(cdt)
-        ).reshape(b * h * w, Bi, C, psize)
-        mu, a_out = em_routing(v, act.to(cdt), self.beta_u, self.beta_a, iters=self.iters)
+        if self.w_shared:
+            return self._class_caps(x)
+        (K0, K1), (s0, s1) = self.kernel, self.stride
+        if (K0, K1) == (1, 1):
+            oh, ow = h, w
+            patches = x
+        else:
+            oh, ow = (h - K0) // s0 + 1, (w - K1) // s1 + 1
+            patches = torch.stack([x[:, i:i + s0 * oh:s0, j:j + s1 * ow:s1, :]
+                                   for i in range(K0) for j in range(K1)],
+                                  dim=3)  # (b, oh, ow, K0*K1, c)
+        taps = K0 * K1
+        pose = patches[..., : Bi * psize].reshape(b * oh * ow, taps * Bi, P, P)
+        act = patches[..., Bi * psize :].reshape(b * oh * ow, taps * Bi, 1)
+        mu, a_out = self._route(
+            torch.einsum("nipq,ijqr->nijpr", pose.to(self.compute_dtype),
+                         self.weights[0].to(self.compute_dtype)), act)
         return torch.cat(
-            [mu.reshape(b, h, w, C * psize), a_out.reshape(b, h, w, C)], dim=-1
+            [mu.reshape(b, oh, ow, C * psize), a_out.reshape(b, oh, ow, C)], dim=-1
         )
+
+    def _route(self, v, act, coords=None):
+        """votes v (n, Bi', C, P, P) or (n, Bi', C, P*P), act (n, Bi', 1)
+        -> EM routing's (mu, a_out), after the optional coordinates."""
+        n, bi = v.shape[:2]
+        v = v.reshape(n, bi, self.out_caps, self.P * self.P)
+        if coords is not None:
+            v = v + coords.to(v.dtype)
+        return em_routing(v, act.to(v.dtype), self.beta_u, self.beta_a, iters=self.iters,
+                          eps=self.eps, lam=self.lam)
+
+    def _class_caps(self, x):
+        P, Bi, C = self.P, self.in_caps, self.out_caps
+        psize = P * P
+        b, h, w, _ = x.shape
+        # one routing over all h*w*Bi input capsules of a sample
+        pose = x[..., : Bi * psize].reshape(b, h * w, Bi, P, P)
+        act = x[..., Bi * psize :].reshape(b, h * w * Bi, 1)
+        coords = None
+        if self.coor_add:
+            coord = torch.zeros((h, w, psize), dtype=torch.float32, device=x.device)
+            coord[:, :, 0] += (torch.arange(h, dtype=torch.float32, device=x.device) / h)[:, None]
+            coord[:, :, 1] += (torch.arange(w, dtype=torch.float32, device=x.device) / w)[None, :]
+            coords = coord.reshape(1, h * w, 1, 1, psize).expand(b, h * w, Bi, C, psize)
+            coords = coords.reshape(b, h * w * Bi, C, psize)
+        # the shared W: input capsule (s, i) votes with weights[0, i]
+        cdt = self.compute_dtype
+        v = torch.einsum("nsipq,ijqr->nsijpr", pose.to(cdt), self.weights[0].to(cdt))
+        _, a_out = self._route(v.reshape(b, h * w * Bi, C, psize), act, coords)
+        return a_out  # (B, C) f32
 
 
 class CapsNet(nn.Module):

@@ -16,16 +16,27 @@ are thin wrappers over torch's convolutions that add what torch lacks:
   backward (convops.py:148-268): every tied maximum of a window gets
   the window's gradient.  Strided pools keep the joint pool, whose
   backward gives each window's gradient to its first maximum in scan
-  order, as XLA's select-and-scatter does.
+  order, as XLA's select-and-scatter does (convops.py:198).  That
+  backward is `max_pool_bwd`: the hand-written kernel
+  csrc/max_pool_bwd.cu on a CUDA tensor (deterministic, unlike torch's
+  atomic max_pool3d_with_indices_backward), `max_pool_bwd_plain` on a
+  CPU tensor.  `max_pool_bwd.launches` counts kernel launches, and
+  nothing else; `launches_by_c` counts the same launches by the pooled
+  tensor's channel count, which tells a model's pools apart.
 """
 
 from __future__ import annotations
+
+import ctypes
+import itertools
+import math
 
 import torch
 import torch.nn.functional as F
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
+_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
 
 def _tuple(v, n: int) -> tuple[int, ...]:
@@ -96,7 +107,7 @@ def max_pool_same_zero_pad(x: torch.Tensor, kernel, stride) -> torch.Tensor:
     than 1, in axis order (the same values as the joint window: max is
     associative and each stage zero-pads its own axis), each with the
     all-ties backward of `_MaxPoolAxis`.  Strided pools are one joint
-    pool."""
+    pool with the first-maximum backward of `_MaxPoolStrided`."""
     n = x.ndim - 2
     kernel = _tuple(kernel, n)
     stride = _tuple(stride, n)
@@ -105,9 +116,119 @@ def max_pool_same_zero_pad(x: torch.Tensor, kernel, stride) -> torch.Tensor:
             if kernel[a] != 1:
                 x = _MaxPoolAxis.apply(x, 2 + a, kernel[a])
         return x
-    pads = [same_pads(x.shape[2 + i], kernel[i], stride[i]) for i in range(n)]
-    pool = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}[n]
-    return pool(_pad_spatial(x, pads), kernel, stride)
+    return _MaxPoolStrided.apply(x, kernel, stride)
+
+
+class _MaxPoolStrided(torch.autograd.Function):
+    """Strided zero-padded max pool: forward F.max_poolNd on the padded
+    x (as torch runs it), backward `max_pool_bwd` on the saved padded x
+    and y (no indices kept)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride):
+        n = x.ndim - 2
+        pads = [same_pads(x.shape[2 + i], kernel[i], stride[i]) for i in range(n)]
+        xp = _pad_spatial(x, pads)
+        y = _POOL[n](xp, kernel, stride)
+        ctx.save_for_backward(xp, y)
+        ctx.kernel, ctx.stride = kernel, stride
+        ctx.lo, ctx.sp = tuple(lo for lo, _ in pads), tuple(x.shape[2:])
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, y = ctx.saved_tensors
+        return max_pool_bwd(xp, y, g, ctx.kernel, ctx.stride, ctx.lo, ctx.sp), None, None
+
+
+def _windows(kernel, stride, od):
+    """(tap, slice) pairs, taps in scan (row-major) order: the slice of
+    the padded input that the tap reads for every window."""
+    for tap in itertools.product(*(range(k) for k in kernel)):
+        yield (slice(None), slice(None)) + tuple(
+            slice(t, t + s * (o - 1) + 1, s) for t, s, o in zip(tap, stride, od))
+
+
+def _check_pool_bwd(xp, y, g, kernel, stride, lo, sp) -> None:
+    n = xp.ndim - 2
+    od = tuple((p - k) // s + 1 for p, k, s in zip(xp.shape[2:], kernel, stride))
+    if not (len(kernel) == len(stride) == len(lo) == len(sp) == n and 1 <= n <= 3
+            and tuple(y.shape) == tuple(g.shape) == (*xp.shape[:2], *od)
+            and all(0 <= l and l + d <= p for l, d, p in zip(lo, sp, xp.shape[2:]))):
+        raise ValueError(f"max_pool_bwd: xp {tuple(xp.shape)}, y {tuple(y.shape)}, g "
+                         f"{tuple(g.shape)} are not a pool of window {kernel}, stride "
+                         f"{stride} over x {sp} padded by {lo} below")
+
+
+def max_pool_bwd_plain(xp, y, g, kernel, stride, lo, sp) -> torch.Tensor:
+    """Plain torch version of the kernel: xp the zero-padded input (N, C,
+    *padded), y = the pool of xp, g its gradient -> dx (N, C, *sp) in xp's
+    type, the x that xp pads by `lo` below.  For each tap in scan order,
+    the windows whose first maximum it is (equal to y, no earlier tap
+    equal) add g to it, in f32 (g rounded to xp's type first); the pads'
+    share is dropped."""
+    _check_pool_bwd(xp, y, g, kernel, stride, lo, sp)
+    acc_t = torch.float64 if xp.dtype == torch.float64 else torch.float32
+    gf = g.to(xp.dtype).to(acc_t)
+    acc = torch.zeros(xp.shape, dtype=acc_t, device=xp.device)
+    found = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+    for win in _windows(kernel, stride, y.shape[2:]):
+        sel = (xp[win] == y) & ~found
+        found |= sel
+        acc[win] += torch.where(sel, gf, 0.0)
+    inner = (slice(None), slice(None)) + tuple(slice(l, l + d) for l, d in zip(lo, sp))
+    return acc[inner].to(xp.dtype)
+
+
+def _pool_bwd_fn():
+    from picad_tpu_torch.ops import _build
+
+    fn = _build.load("max_pool_bwd").picad_max_pool_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def max_pool_bwd(xp, y, g, kernel, stride, lo, sp) -> torch.Tensor:
+    """The strided pools' backward (`max_pool_bwd_plain`'s function).
+
+    CPU tensors: the plain version.  CUDA tensors: csrc/max_pool_bwd.cu,
+    or raise."""
+    if xp.device.type == "cpu" and g.device.type == "cpu":
+        return max_pool_bwd_plain(xp, y, g, kernel, stride, lo, sp)
+    _check_pool_bwd(xp, y, g, kernel, stride, lo, sp)
+    if xp.device.type != "cuda" or y.device != xp.device or g.device != xp.device:
+        raise ValueError(f"max_pool_bwd: tensors on {[str(t.device) for t in (xp, y, g)]}; "
+                         "the kernel wants all of them on one CUDA device")
+    if xp.dtype not in (torch.float32, torch.bfloat16) or y.dtype != xp.dtype:
+        raise TypeError(f"max_pool_bwd kernel takes f32 or bf16 xp and y of one type, not "
+                        f"{xp.dtype} and {y.dtype}")
+    if math.prod(kernel) > 254:
+        raise ValueError(f"max_pool_bwd kernel: window {kernel} has more than 254 taps")
+    if xp.shape[0] * xp.shape[1] * (max(sp[0], y.shape[2]) if len(sp) == 3 else 1) > 2**31 - 1:
+        raise ValueError("max_pool_bwd kernel: its frames (N * C * T) exceed int32")
+    xp, y, g = xp.contiguous(), y.contiguous(), g.to(xp.dtype).contiguous()
+    dx = torch.empty((*xp.shape[:2], *sp), dtype=xp.dtype, device=xp.device)
+    first = torch.empty(y.shape, dtype=torch.uint8, device=xp.device)  # each window's max tap
+    lead = 3 - len(sp)  # a lower rank as leading dims of size 1
+    one, zero = (1,) * lead, (0,) * lead
+    with torch.cuda.device(xp.device):
+        err = _pool_bwd_fn()(
+            xp.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), first.data_ptr(),
+            xp.shape[0] * xp.shape[1], *(one + tuple(sp)), *(one + tuple(xp.shape[2:])),
+            *(one + tuple(y.shape[2:])), *(one + tuple(kernel)), *(one + tuple(stride)),
+            *(zero + tuple(lo)), int(xp.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"max_pool_bwd kernel launch failed: CUDA error {err}")
+    max_pool_bwd.launches += 1
+    c = xp.shape[1]
+    max_pool_bwd.launches_by_c[c] = max_pool_bwd.launches_by_c.get(c, 0) + 1
+    return dx
+
+
+max_pool_bwd.launches, max_pool_bwd.launches_by_c = 0, {}
 
 
 def _shift(t: torch.Tensor, dim: int, shift: int, fill: float) -> torch.Tensor:

@@ -25,6 +25,13 @@ at `fwd_plan`'s w-tiles, row blocks and channel groups; K2
 `bwd_tap_table` and splits each sample's tiles by `bwd_plan`.  In f32
 both run their FP32-core bodies.
 
+The forward is the custom op `picad::composite_convt` (torch.library):
+its CPU implementation is `composite_convt_plain`, its CUDA one the K1
+kernel, and its fake one gives the output's shape, type and device, so
+that torch.export keeps K1 in a serving artifact as one named node
+(serve/export.py); torch.utils.flop_counter counts it as the plain
+version's GEMM.
+
 Kernels are built with nvcc at first use and bound with ctypes.  On a
 CUDA tensor a wrapper launches its kernel or raises: there is no
 fallback.  The plain versions are also what the kernels are held against
@@ -37,11 +44,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 # per-axis scatter out[2i - 2 + tau] += z[i, tau], split by output parity
 # phi: (tap, input shift) pairs per phase
@@ -292,9 +301,29 @@ def _tap_matrix(x: torch.Tensor, Kc: torch.Tensor) -> torch.Tensor:
     return kc.clone() if kc.data_ptr() % 16 != 0 else kc  # a fresh allocation is aligned
 
 
+@torch.library.custom_op("picad::composite_convt", mutates_args=(), device_types="cpu")
+def composite_convt_op(x: torch.Tensor, Kc: torch.Tensor) -> torch.Tensor:
+    """K1 as a named op: the plain version on the CPU (below: the kernel
+    on the card, the output's shape for a trace)."""
+    return composite_convt_plain(x, Kc)
+
+
+@composite_convt_op.register_fake
+def _(x, Kc):
+    B, T, H, W, _ = x.shape
+    return x.new_empty((B, 2 * T, 2 * H, 2 * W), dtype=_acc_dtype(x))
+
+
+@register_flop_formula(torch.ops.picad.composite_convt)
+def _composite_convt_flops(x_shape, kc_shape, *args, out_shape=None, **kwargs) -> int:
+    """torch.utils.flop_counter's count for the op: the plain version's
+    one GEMM, the padded x (B, prod(sp + 2), C) against the 5^d taps."""
+    d = len(x_shape) - 2
+    return 2 * x_shape[0] * math.prod(s + 2 for s in x_shape[1:-1]) * x_shape[-1] * 5**d
+
+
+@composite_convt_op.register_kernel("cuda")
 def _composite_fwd(x: torch.Tensor, Kc: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return composite_convt_plain(x, Kc)
     _check_cuda("composite_convt", x, Kc)
     B, T, H, W, C = x.shape
     out = torch.empty((B, 2 * T, 2 * H, 2 * W), dtype=torch.float32, device=x.device)
@@ -369,7 +398,7 @@ class _CompositeConvT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, Kc):
         ctx.save_for_backward(x, Kc)  # not the output: callers add into it
-        return _composite_fwd(x, Kc)
+        return composite_convt_op(x, Kc)
 
     @staticmethod
     def backward(ctx, g):

@@ -35,6 +35,13 @@ x tile serves a group of taps), its tap groups and its split.
 `work_ratio` reads the multiply-adds each plan issues over the useful
 ones.
 
+K3 is the custom op `picad::tap_conv_fwd` (torch.library): its CPU
+implementation is the plain version, its CUDA one the kernel, and its
+fake one gives the output's shape, so that torch.export keeps K3 in a
+serving artifact as a named node (serve/export.py); torch.utils.
+flop_counter counts it as the plain version's GEMMs.  K4 and K5 run in
+the backward only and stay plain functions.
+
 Kernels are built with nvcc at first use and bound with ctypes.  On a
 CUDA tensor a wrapper launches its kernel or raises: there is no switch,
 no shape gate and no fallback.  `tap_conv_fwd.launches`,
@@ -56,6 +63,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 # csrc/tap_conv.cu's modes
 _FWD, _DX, _DW = 0, 1, 2
@@ -452,12 +460,38 @@ def _gcan(g: torch.Tensor, sp, od) -> torch.Tensor:
 
 
 def tap_conv_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K3: x (B, *sp, Ci), w (*k, Ci, Co) -> (B, *out, Co) in x's type.
+    """K3: x (B, *sp, Ci), w (*k, Ci, Co) -> (B, *out, Co) in x's type,
+    through the custom op `picad::tap_conv_fwd`.
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, or raise."""
+    _geometry(x.shape, w.shape)
+    return tap_conv_fwd_op(x, w)
+
+
+@torch.library.custom_op("picad::tap_conv_fwd", mutates_args=(), device_types="cpu")
+def tap_conv_fwd_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K3 as a named op, so that torch.export keeps it in a serving
+    artifact: the plain version on the CPU (below: the kernel on the
+    card, the output's shape for a trace)."""
+    return tap_conv_fwd_plain(x, w)
+
+
+@tap_conv_fwd_op.register_fake
+def _(x, w):
     _, _, od = _geometry(x.shape, w.shape)
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return tap_conv_fwd_plain(x, w)
+    return x.new_empty((x.shape[0], *od, w.shape[-1]))
+
+
+@register_flop_formula(torch.ops.picad.tap_conv_fwd)
+def _tap_conv_fwd_flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """torch.utils.flop_counter's count for the op: the plain version's
+    one GEMM a tap, (B * out, Ci) @ (Ci, Co)."""
+    return 2 * math.prod(out_shape[:-1]) * math.prod(w_shape)
+
+
+@tap_conv_fwd_op.register_kernel("cuda")
+def _tap_conv_fwd_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _, _, od = _geometry(x.shape, w.shape)
     wq = w.to(x.dtype)
     _check_cuda("tap_conv_fwd", x, wq)
     out = torch.empty((x.shape[0], *od, w.shape[-1]), dtype=x.dtype, device=x.device)

@@ -11,9 +11,10 @@ shapes:
   and the interleave is inverted to put each clip prediction back on its
   source frame.  Video class = argmax of the mean clip score.
 
-The JAX package serves an exported StableHLO artifact; the port serves
-the model in-process (on the card it runs the fused head's CUDA kernel).
-A `torch.export` artifact is still to be ported (ROADMAP.md).
+`from_model` serves a model in-process; serve/export.load_artifact
+serves a `torch.export` artifact through the same class (the JAX
+package serves its exported StableHLO artifact the same way).  Either
+way the card runs K1 and K3 as CUDA kernels.
 """
 
 from __future__ import annotations

@@ -834,3 +834,83 @@ def test_nccl_world_one_is_the_identity(card):
         layers.BN_ONEPASS_MIN = saved
     for i, (a, b) in enumerate(zip(alone, grouped)):
         assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k,s", [
+    ((2, 8, 3, 23, 17), (1, 3, 3), (1, 2, 2)),  # odd H and W: a pad on each side
+    ((2, 8, 4, 22, 16), (1, 3, 3), (1, 2, 2)),  # even: one pad above
+    ((2, 8, 5, 9, 11), (3, 3, 3), (2, 1, 1)),  # up to 18 windows an element
+    ((2, 8, 3, 7, 10), (2, 2, 2), (2, 2, 2)),  # MaxPool3d_5a: one window an element
+])
+def test_max_pool_bwd_kernel_matches_plain(card, shape, k, s, dtype, ties):
+    """The strided pools' backward kernel against its plain version on
+    post-ReLU inputs, with planted equal positive maxima (`ties`, the
+    values rounded to integers): f32 bit for bit, bf16 within one bf16
+    ulp; twice on the same input, bit for bit."""
+    from picad_tpu_torch.ops import convops
+
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.relu(torch.randn(shape, generator=g, device=card))
+    x = (x.round() if ties else x).to(dtype)
+    pads = [convops.same_pads(d, kk, ss) for d, kk, ss in zip(shape[2:], k, s)]
+    xp = convops._pad_spatial(x, pads)
+    y = torch.nn.functional.max_pool3d(xp, k, s)
+    gy = torch.randn(y.shape, generator=g, device=card).to(dtype)
+    args = (xp, y, gy, k, s, tuple(lo for lo, _ in pads), shape[2:])
+    before = convops.max_pool_bwd.launches
+    out, again = convops.max_pool_bwd(*args), convops.max_pool_bwd(*args)
+    torch.cuda.synchronize()
+    assert convops.max_pool_bwd.launches == before + 2
+    assert torch.equal(out, again)
+    ref = convops.max_pool_bwd_plain(*args)
+    assert out.shape == x.shape and out.dtype == dtype
+    tol = BF16_ULP * ref.float().abs() if dtype == torch.bfloat16 else 0.0
+    assert bool(((out.float() - ref.float()).abs() <= tol).all())
+
+
+def test_strided_pools_backward_on_card_is_deterministic(card):
+    """Through autograd: the encoder's three strided pools' gradient on
+    the card, twice bit for bit, and equal to the CPU's (f32, the same
+    first-maximum rule)."""
+    from picad_tpu_torch.ops import convops
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.relu(torch.randn((2, 16, 4, 30, 30), generator=g)).round()
+    grads = []
+    for dev in ("cuda", "cuda", "cpu"):
+        xt = x.to(dev).requires_grad_(True)
+        y = convops.max_pool_same_zero_pad(xt, (1, 3, 3), (1, 2, 2))
+        y = convops.max_pool_same_zero_pad(y, (3, 3, 3), (2, 1, 1))
+        (gx,) = torch.autograd.grad(y, xt, torch.ones_like(y))
+        grads.append(gx.cpu())
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], grads[2], rtol=0, atol=0)
+
+
+def test_serving_artifact_on_card(card, tmp_path):
+    """The bf16 CapsNet exported on the card at clip batch 2, 96^2: the
+    graph keeps K1 and K3 as custom ops, the loaded artifact launches K1
+    once and K3 twice a padded batch, and matches the in-process
+    ServingModel within 1e-3 with the same classes; a CPU-traced load is
+    refused."""
+    from picad_tpu_torch.serve import ServingModel, load_artifact, save_artifact
+
+    model = build_capsnet(seed=0, device=card)
+    out = save_artifact(str(tmp_path / "art"), model, clip_batch_size=2, height=96, width=96)
+    art = load_artifact(out)
+    targets = [str(n.target) for n in art.program.graph.nodes if n.op == "call_function"]
+    assert targets.count("picad.composite_convt.default") == 1
+    assert targets.count("picad.tap_conv_fwd.default") == 2
+    clips = np.random.default_rng(3).random((3, 8, 96, 96, 3), dtype=np.float32)
+    k1, k3 = composite_convt.launches, tapconv.tap_conv_fwd.launches
+    seg, scores = art.predict_clips(clips)
+    torch.cuda.synchronize()
+    assert (composite_convt.launches - k1, tapconv.tap_conv_fwd.launches - k3) == (2, 4)
+    live = ServingModel.from_model(model, clip_batch_size=2, height=96, width=96)
+    seg_l, scores_l = live.predict_clips(clips)
+    assert np.abs(seg - seg_l).max() <= SLICE_ATOL and np.abs(scores - scores_l).max() <= SLICE_ATOL
+    assert (scores.argmax(1) == scores_l.argmax(1)).all()
+    with pytest.raises(ValueError, match="traced on 'cuda'"):
+        load_artifact(out, device="cpu")

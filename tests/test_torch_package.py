@@ -10,14 +10,21 @@ import pytest
 import torch
 
 from picad_tpu_torch._device import resolve_device
-from picad_tpu_torch.cli import evaluate_jhmdb, evaluate_ucf101, train_jhmdb, train_ucf101
+from picad_tpu_torch.cli import (
+    evaluate_jhmdb,
+    evaluate_ucf101,
+    export_model,
+    train_jhmdb,
+    train_ucf101,
+)
 from picad_tpu_torch.config import LossConfig, TrainConfig
 from picad_tpu_torch.data.device_cache import DeviceVideoCache, make_assembler_put
 from picad_tpu_torch.data.loader import PrefetchLoader
 from picad_tpu_torch.data.sources import SyntheticVideoSource
 from picad_tpu_torch.eval.runner import sweep_checkpoints
 from picad_tpu_torch.models.capsules import CapsNet, build_capsnet
-from picad_tpu_torch.serve.runner import ServingModel
+from picad_tpu_torch.serve import ServingModel, load_artifact
+from picad_tpu_torch.tools import parity_eval
 from picad_tpu_torch.train.loop import Trainer
 from picad_tpu_torch.train.state import create_train_state
 from picad_tpu_torch.train.step import make_train_step, make_val_step
@@ -40,10 +47,19 @@ for name in names:
 importlib.import_module("chip_smoke")
 
 import torch
-from picad_tpu_torch.ops import _build
+from picad_tpu_torch.ops import _build, convops, tapconv
 from picad_tpu_torch.ops.fused_head_kernel import composite_convt
 out = composite_convt(torch.zeros(1, 2, 3, 4, 8), torch.zeros(1, 5, 5, 5, 8))
 assert out.shape == (1, 4, 6, 8) and composite_convt.launches == 0
+# the custom ops of the serving artifact are registered at import, and their
+# CPU implementations build nothing
+assert torch.ops.picad.composite_convt(torch.zeros(1, 2, 3, 4, 8),
+                                       torch.zeros(1, 5, 5, 5, 8)).shape == (1, 4, 6, 8)
+out = torch.ops.picad.tap_conv_fwd(torch.zeros(1, 3, 3, 8), torch.zeros(2, 2, 8, 8))
+assert out.shape == (1, 2, 2, 8) and tapconv.tap_conv_fwd.launches == 0
+x = torch.rand(1, 2, 3, 6, 6, requires_grad=True)
+convops.max_pool_same_zero_pad(x, (1, 3, 3), (1, 2, 2)).sum().backward()
+assert x.grad.shape == x.shape and convops.max_pool_bwd.launches == 0
 assert not _build._LIBS
 
 trainer_slice = {
@@ -63,9 +79,16 @@ parallel_slice = {"picad_tpu_torch.parallel", "picad_tpu_torch.parallel.mesh"}
 assert parallel_slice <= set(names), parallel_slice - set(names)  # imported above
 assert not dist.is_initialized()  # no process group at import
 
-foreign = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "picad_tpu", "cv2"))
-assert not foreign, foreign  # cv2 too: the card's machine has no OpenCV
+artifact_slice = {
+    "picad_tpu_torch.serve.export", "picad_tpu_torch.cli.export_model",
+    "picad_tpu_torch.tools", "picad_tpu_torch.tools.parity_eval",
+    "picad_tpu_torch.tools.smoke_gif", "picad_tpu_torch.utils.visualize",
+    "picad_tpu_torch.objectives.losses", "picad_tpu_torch.models.i3d"}
+assert artifact_slice <= set(names), artifact_slice - set(names)  # imported above
+
+foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "picad_tpu", "tools", "cv2", "matplotlib", "imageio"))
+assert not foreign, foreign  # nor OpenCV, matplotlib or imageio: the card's machine has none
 print(len(names))
 """
 
@@ -115,6 +138,12 @@ def test_entry_points_default_to_the_card():
     for cli in (evaluate_ucf101, evaluate_jhmdb):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["--ckpt", ".", "--synthetic"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_artifact(".")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_model.main(["--ckpt", ".", "--out", "."])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parity_eval.main(["--reference_pth", "missing.pth", "--synthetic", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
