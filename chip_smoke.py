@@ -73,10 +73,31 @@ failure exits non-zero (no phase is caught and passed over):
             K5 twice per step (the pose and act convs), max_pool_bwd
             once per strided pool per step (counted apart from the
             bench's six, by the pool's channels); finite
-            losses, every parameter moved; the median warm step wall with
-            each step synchronised, its clips/s, and peak memory.
-  9 train-profile torch.profiler over one warm train step: wall, device
-            time, busy share, each kernel's time and the top entries.
+            losses, every parameter moved; the steps go through the
+            graphed step (train/graph.py: the first hooked for the K6
+            count and eager, graph.WARMUP warm-ups, one capture, then
+            replays), and the same steps from the same seeded state
+            through the eager step (make_train_step(...).eager_step)
+            must give the same losses, parameters, BN running stats,
+            Adam moments and step counts and dropout generator state,
+            bit for bit.  The wrappers count the eager calls; a replay
+            calls none, so its launches are read in its trace (phase
+            9).  The median synchronised step wall of the replays and
+            of the eager steps, their clips/s, peak allocated memory,
+            and the graph's memory pool (reserved, and allocated in it).
+  9 train-profile torch.profiler over one replayed train step and over
+            one eager step: wall, device time, busy share, each kernel's
+            time and the top entries; the host time of a call (enqueue
+            only, the device idle before it) and the busy share of the
+            unprofiled synchronised step, replay beside eager.  The
+            instances of K1-K6's and max_pool_bwd's two passes' CUDA
+            functions, by name, in the replay's trace must equal the
+            eager step's, none missing; phase 8's graphed launches are
+            its eager calls' counts plus, per replay, what the eager
+            step's wrappers count; what a replay adds to the counters
+            (utils/profiling.add_launches, for the bench's traced run)
+            must be the same.  Phases 11-13 count a replay as
+            add_launches does, which this phase holds against the trace.
  10 stem    the plain 7^3/s2 stem (Unit3D) against StemS2D, bf16, at the
             train shape (16, 3, 8, 224, 224) and the serving shape (14,
             ...): eval forward and train forward + backward (dW and the BN
@@ -84,8 +105,9 @@ failure exits non-zero (no phase is caught and passed over):
             in channels_last_3d; S2D within STEM_RTOL of plain (the eval
             output, and dW and the BN weight's gradient of a train step), and the packed uint8 branch
             against the f32 branch in f32 (TF32 off) within 1e-4 of the
-            largest value; the model's default stem must be within
-            STEM_CHOICE_SLACK of the fastest.
+            largest value; the three stems are timed in turns,
+            STEM_ROUNDS rounds, and the model's default stem's median must
+            be within STEM_CHOICE_SLACK of the fastest median.
  11 data    the train step fed by the input pipeline, as bench.py:266-403:
             a DeviceVideoCache on the card from two SyntheticVideoSource(16,
             40 frames of 240x320) (labelled fractions 1 and 0, seeds 1 and
@@ -128,7 +150,9 @@ failure exits non-zero (no phase is caught and passed over):
             with the launch counts set to 0 just before and read just
             after, and each epoch's train steps and validation read apart:
             K1-K6 (1, 1, 2, 2, 2, 4) a train step, K1 once and K3 twice a
-            validation batch and a padded eval batch, nothing else.  Each
+            validation batch and a padded eval batch, nothing else; each
+            train CLI's Trainer steps through the graphed step, captured
+            once and replayed after graph.WARMUP eager steps.  Each
             epoch's wall and clips/s, the checkpoint's bytes and its save
             and restore seconds, eval seconds a checkpoint and the
             surviving directories; fails on a non-finite loss, a wrong
@@ -142,7 +166,9 @@ failure exits non-zero (no phase is caught and passed over):
             runs without a group bit for bit; the group's run bit for
             bit, or else (recorded, with the gap) the first forward bit
             for bit and the first step's gradients within
-            DP_GROUP_GRAD_TOL; the operations without a deterministic
+            DP_GROUP_GRAD_TOL (in a group the step stays eager with plain
+            Adam, without one it takes the fused Adam, so the updates
+            may differ by rounding); the operations without a deterministic
             form, one profiled step each way, the gradient average's ms.  (b)
             DP_WORLD gloo ranks on cuda:0 (NCCL refuses two ranks on one
             card), global batch TRAIN_BS: DP_STEPS bf16 steps with the
@@ -251,6 +277,7 @@ from picad_tpu_torch.ops.fused_head_kernel import (
 from picad_tpu_torch.parallel import mesh
 from picad_tpu_torch.serve import ServingModel, load_artifact, save_artifact
 from picad_tpu_torch.train.loop import Trainer
+from picad_tpu_torch.train import graph
 from picad_tpu_torch.train.state import create_train_state
 from picad_tpu_torch.train.step import make_train_step
 from picad_tpu_torch.utils.profiling import (
@@ -309,7 +336,8 @@ SLICE_ATOL = 1e-3  # card vs CPU f32: EM routing's cost_std quirk amplifies
 # JAX on the CPU: up to 4.3e-4 on the scores over six fixture draws)
 STEM_BATCH = {"train": 16, "serve": 14}  # [data; aug] of batch 8; the serving clip batch
 STEM_RTOL = 1e-2  # of max|plain|: bf16 products summed in another order, rounded to bf16
-STEM_CHOICE_SLACK = 1.10  # the default stem's time over the fastest's, at most
+STEM_CHOICE_SLACK = 1.10  # the default stem's median time over the fastest's, at most
+STEM_ROUNDS = 5  # rounds of the three stems timed in turns
 DATA_STEPS = 6  # train steps through each input path in phase 11
 # phase 13: the train CLI's flags, and synthetic_num_videos (no flag)
 TRAINER_ARGV = ["--synthetic", "--bs", "8", "--pf", "2", "--wt_cons", "0.1", "--bv",
@@ -696,57 +724,237 @@ def train_step_card_vs_cpu(seed: int = 1, size: int = 96, keep: dict | None = No
     return {"ok": not problems, "problems": problems[:20], "launches": launches, **summary}
 
 
-def train_main_path(seed: int) -> tuple[dict, object]:
-    """Phase 8: the bench configuration at full width in bf16 on the card,
-    TRAIN_STEPS steps -> (results, a closure that runs one more step)."""
-    state = create_train_state(seed=seed, device="cuda", bn_groups=2, dropout_rate=0.5)
-    step = make_train_step(LossConfig(**TRAIN_CFG))  # folds: the model has bn_groups 2
-    batch = synthetic_batch(np.random.default_rng(47 + seed), TRAIN_BS, (224, 224))
-    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
-    big_bn = []  # BN inputs that take K6, counted by hooks over the first step
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, args: big_bn.append(args[0].numel() >= layers.BN_ONEPASS_MIN))
-        for m in state.model.modules() if isinstance(m, layers.TorchBatchNorm)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, losses = [], []
-    reset_launches()
-    reset_pool_launches()
-    for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, TRAIN_EPOCH, TRAIN_RAMP)
+def state_snapshot(state) -> dict:
+    """Every tensor a train step changes, cloned: the parameters, the BN
+    running stats, Adam's moments and step counts, and the dropout
+    generator's state."""
+    model = state.model
+    snap = {f"param {n}": p.detach().clone() for n, p in model.named_parameters()}
+    snap.update({f"buffer {n}": b.detach().clone() for n, b in model.named_buffers()})
+    for n, p in model.named_parameters():
+        snap.update({f"adam {n} {k}": v.detach().clone()
+                     for k, v in state.optimizer.state[p].items()})
+    snap["generator"] = state.generator.get_state()
+    return snap
+
+
+def snapshot_diff(a: dict, b: dict) -> list:
+    """The entries of two state_snapshots that are not bit for bit equal."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+def run_plan(state, plan, batch, steps: dict) -> list:
+    """Each (step, epoch, ramp, lr) of `plan` on `state`: `steps[step]`,
+    after with_learning_rate(lr) unless lr is None -> each step's
+    metrics on the host."""
+    out = []
+    for name, epoch, ramp, lr in plan:
+        if lr is not None:
+            state.with_learning_rate(lr)
+        state, m = steps[name](state, batch, epoch, ramp)
+        out.append({k: float(v) for k, v in m.items()})
+    return out
+
+
+def graphed_against_eager(plan, batch, *, seed: int, dropout: float) -> dict:
+    """`plan` (run_plan's: "graphed" or "eager" steps) from a state of
+    `seed`, and every step of it eager from a second state of the same
+    seed: the losses and state_snapshots bit for bit or not, and what the
+    graphed step did (captures, replays)."""
+    cfg = LossConfig(**TRAIN_CFG)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        state = create_train_state(seed=seed, device="cuda", bn_groups=2, dropout_rate=dropout)
+        graphed = make_train_step(cfg)
+        steps = {"eager": graphed.eager_step,
+                 "graphed": graphed if mode == "graphed" else graphed.eager_step}
+        losses = run_plan(state, plan, batch, steps)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append({k: float(v) for k, v in metrics.items()})
-        if i == 0:
-            for h in hooks:
-                h.remove()
-    launches, by_conv = read_launches(), read_conv_counts()
-    pool_by_c = dict(convops.max_pool_bwd.launches_by_c)
-    pool_want = {c: TRAIN_STEPS for c in POOL_BWD_SHAPES}  # each strided pool once a step
-    n_big = sum(big_bn)
-    want = {"composite_convt": TRAIN_STEPS, "composite_convt_bwd": TRAIN_STEPS,
-            "bn_stats": n_big * TRAIN_STEPS, "tap_conv_fwd": 2 * TRAIN_STEPS,
-            "tap_conv_dx": 2 * TRAIN_STEPS, "tap_conv_dw": 2 * TRAIN_STEPS}
-    want_by_conv = {fn.__name__: {conv: TRAIN_STEPS for conv in PCAPS_CO} for fn in TAP_COUNTERS}
-    moved = sum(not torch.equal(p.detach(), before[n])
-                for n, p in state.model.named_parameters())
-    finite = all(np.isfinite(v) for m in losses for v in m.values())
-    warm_s = float(np.median(times[1:]))
-    res = {"launches": launches, "want": want, "launches_by_conv": by_conv,
-           "pool_bwd_launches_by_c": pool_by_c, "big_bn_per_step": n_big,
-           "params_moved": moved, "n_params": len(before), "losses": losses,
-           "step_s": times, "warm_step_ms": warm_s * 1e3,
-           "clips_per_s": TRAIN_BS / warm_s,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-    if not (launches == want and by_conv == want_by_conv and pool_by_c == pool_want
-            and convops.max_pool_bwd.launches == sum(pool_want.values())
-            and moved == len(before) and finite):
-        raise AssertionError(f"train: launches {launches} (want {want}), by conv {by_conv} "
-                             f"(want {want_by_conv}), pool backward by channels {pool_by_c} "
-                             f"(want {pool_want}), parameters moved "
-                             f"{moved}/{len(before)}, losses finite {finite}: {losses}")
-    return res, lambda: step(state, batch, TRAIN_EPOCH, TRAIN_RAMP)
+        runs[mode] = (losses, state_snapshot(state), steps["graphed"])
+        del state, steps
+    (lg, sg, graphed), (le, se, _) = runs["graphed"], runs["eager"]
+    differ = snapshot_diff(sg, se)
+    return {"bitwise": lg == le and not differ, "differ": differ[:10], "n_tensors": len(se),
+            "captures": graphed.captures, "replays": graphed.replays,
+            "graphs": len(graphed.graphs), "losses": [m["loss"] for m in lg]}
+
+
+def host_ms(fn, calls: int = 3) -> float:
+    """The median host time of a call of fn (its return, not the
+    device's completion), the device idle before each call."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def counter_state() -> dict:
+    """The launch counts phase 8 checks, as the wrappers counted them:
+    the six, K3-K5 by conv, the pool backward by channels and in all."""
+    return {"launches": read_launches(), "by_conv": read_conv_counts(),
+            "pool_by_c": dict(convops.max_pool_bwd.launches_by_c),
+            "pool": convops.max_pool_bwd.launches}
+
+
+def counts_scaled(c, mul: int = 1, div: int = 1):
+    """A counter_state's counts times mul over div (exactly, or it fails)."""
+    if isinstance(c, dict):
+        return {k: counts_scaled(v, mul, div) for k, v in c.items()}
+    n, rest = divmod(c * mul, div)
+    if rest:
+        raise AssertionError(f"{c} launches do not divide by {div}")
+    return n
+
+
+def counts_plus(a, b):
+    if isinstance(a, dict):
+        return {k: counts_plus(a[k], b[k]) for k in a}
+    return a + b
+
+
+def want_counts(steps: int, n_big: int) -> dict:
+    """What `steps` train steps launch (a counter_state)."""
+    return {"launches": {"composite_convt": steps, "composite_convt_bwd": steps,
+                         "bn_stats": n_big * steps, "tap_conv_fwd": 2 * steps,
+                         "tap_conv_dx": 2 * steps, "tap_conv_dw": 2 * steps},
+            "by_conv": {fn.__name__: {conv: steps for conv in PCAPS_CO} for fn in TAP_COUNTERS},
+            "pool_by_c": {c: steps for c in POOL_BWD_SHAPES},  # each strided pool once a step
+            "pool": steps * len(POOL_BWD_SHAPES)}
+
+
+def pool_gib(pool) -> tuple[float, float]:
+    """The memory a CUDA graph pool holds: its segments' reserved GiB, and
+    the GiB of live blocks in them (the graphs' static outputs)."""
+    segs = [s for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) == tuple(pool)]
+    return (sum(s["total_size"] for s in segs) / 2**30,
+            sum(s["allocated_size"] for s in segs) / 2**30)
+
+
+def train_main_path(seed: int) -> tuple[dict, object, object]:
+    """Phase 8: the bench configuration at full width in bf16 on the card,
+    TRAIN_STEPS steps through the graphed step and again through the
+    eager step from the same seeded state -> (results, a closure that
+    replays one more step, a closure that runs one more eager step).
+
+    The eager steps' launches are the wrappers' counts.  The replays'
+    are not: a replay calls no wrapper.  Phase 9 (train_profile) counts
+    them in a replay's trace and fills in the graphed run's totals."""
+    batch = synthetic_batch(np.random.default_rng(47 + seed), TRAIN_BS, (224, 224))
+    res, runs = {}, {}
+    for mode in ("graphed", "eager"):
+        state = create_train_state(seed=seed, device="cuda", bn_groups=2, dropout_rate=0.5)
+        # folds: the model has bn_groups 2
+        step = make_train_step(LossConfig(**TRAIN_CFG))
+        if mode == "eager":
+            step = step.eager_step
+        before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        big_bn = []  # BN inputs that take K6, counted by hooks over the first step
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: big_bn.append(args[0].numel() >= layers.BN_ONEPASS_MIN))
+            for m in state.model.modules() if isinstance(m, layers.TorchBatchNorm)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        reset_launches()
+        reset_pool_launches()
+        # graphed: step 1 hooked (eager), the warm-ups (eager), the capture
+        # and its replay, then replays; the wrappers count the eager calls
+        n_eager = 1 + graph.WARMUP if mode == "graphed" else TRAIN_STEPS
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, TRAIN_EPOCH, TRAIN_RAMP)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append({k: float(v) for k, v in metrics.items()})
+            if i == 0:
+                for h in hooks:
+                    h.remove()
+            if i == n_eager - 1:
+                counted = counter_state()
+        n_big = sum(big_bn)
+        want = want_counts(n_eager, n_big)
+        moved = sum(not torch.equal(p.detach(), before[n])
+                    for n, p in state.model.named_parameters())
+        finite = all(np.isfinite(v) for m in losses for v in m.values())
+        warm_s = float(np.median(times[n_eager:] if mode == "graphed" else times[1:]))
+        r = res[mode] = {
+            "counted": counted, "counted_steps": n_eager, "big_bn_per_step": n_big,
+            "params_moved": moved, "n_params": len(before), "losses": losses,
+            "step_s": times, "warm_step_ms": warm_s * 1e3, "clips_per_s": TRAIN_BS / warm_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+        if mode == "graphed":
+            r.update(captures=step.captures, replays=step.replays)
+            r["pool_gib"], r["pool_allocated_gib"] = pool_gib(step.pool)
+        else:
+            r.update(counted)
+        if not (counted == want and moved == len(before) and finite):
+            raise AssertionError(f"train ({mode}): launches of the {n_eager} eager steps "
+                                 f"{counted} (want {want}), parameters moved "
+                                 f"{moved}/{len(before)}, losses finite {finite}: {losses}")
+        torch.cuda.synchronize()
+        runs[mode] = (state, step, state_snapshot(state))
+    (gstate, gstep, gsnap), (estate, estep, esnap) = runs["graphed"], runs["eager"]
+    differ = snapshot_diff(gsnap, esnap)
+    res["graphed_vs_eager"] = {
+        "bitwise": res["graphed"]["losses"] == res["eager"]["losses"] and not differ,
+        "differ": differ[:10], "n_tensors": len(esnap)}
+    g = res["graphed"]
+    if (g["captures"], g["replays"]) != (1, TRAIN_STEPS - 1 - graph.WARMUP) \
+            or not res["graphed_vs_eager"]["bitwise"]:
+        raise AssertionError(f"train: {g['captures']} captures and {g['replays']} replays (want 1 "
+                             f"and {TRAIN_STEPS - 1 - graph.WARMUP}); graphed against eager "
+                             f"{res['graphed_vs_eager']}, losses {g['losses']} against "
+                             f"{res['eager']['losses']}")
+    return (res, lambda: gstep(gstate, batch, TRAIN_EPOCH, TRAIN_RAMP),
+            lambda: estep(estate, batch, TRAIN_EPOCH, TRAIN_RAMP))
+
+
+def train_profile(tr: dict, one_step, one_eager) -> dict:
+    """Phase 9: torch.profiler over one replay and one eager step of
+    phase 8's states (profile_call: three calls each, the last traced),
+    the host ms of a call, and the replays' launches.
+
+    A replay calls no wrapper, so its launches are read in its trace: the
+    instances of each counted wrapper's CUDA functions by name
+    (profile_call's kernel_counts) must equal the eager step's, and none
+    may be missing.  A replay then launches what one eager step launches,
+    as the wrappers counted that (phase 8's eager run over TRAIN_STEPS);
+    phase 8's graphed totals are its eager calls' counts plus that per
+    replay.  What a replay adds to the counters (for the bench's traced
+    run) must be the same."""
+    prof = {}
+    for mode, fn, warm_ms in (("replay", one_step, tr["graphed"]["warm_step_ms"]),
+                              ("eager", one_eager, tr["eager"]["warm_step_ms"])):
+        reset_launches()
+        reset_pool_launches()
+        p = prof[mode] = profile_call(fn)
+        p["counters"] = counts_scaled(counter_state(), div=3)  # a call's, of 3
+        # the profiler slows the host: the busy share of an unprofiled warm step too
+        p["busy_share_of_warm_step"] = p["device_ms"] / warm_ms
+        p["host_ms"] = host_ms(fn)
+    per_step = counts_scaled(tr["eager"]["counted"], div=TRAIN_STEPS)
+    rk, ek = prof["replay"]["kernel_counts"], prof["eager"]["kernel_counts"]
+    missing = sorted(k for k in ek if not ek[k])
+    if rk != ek or missing or prof["eager"]["counters"] != per_step:
+        raise AssertionError(f"train profile: a replay's kernels by name {rk}, an eager step's "
+                             f"{ek} (none missing: {missing}); the eager step's counters "
+                             f"{prof['eager']['counters']}, want {per_step}")
+    g = tr["graphed"]
+    g["replay_counts_from_trace"] = per_step
+    g.update(counts_plus(g["counted"], counts_scaled(per_step, mul=g["replays"])))
+    want = want_counts(TRAIN_STEPS, g["big_bn_per_step"])
+    if {k: g[k] for k in want} != want or prof["replay"]["counters"] != per_step:
+        raise AssertionError(f"train: the graphed run's launches {({k: g[k] for k in want})}, "
+                             f"want {want}; a replay adds {prof['replay']['counters']} to the "
+                             f"counters, its trace shows {per_step}")
+    return prof
 
 
 def _stem_module(cls, w, dtype=torch.bfloat16):
@@ -781,7 +989,7 @@ def stem_phase(seed: int) -> dict:
             x = (clip.float() / 255.0).permute(0, 4, 1, 2, 3)  # the model's view of its clips
             r = torch.randn((batch, 64, 4, 112, 112), generator=gen,
                             device="cuda").to(torch.bfloat16)
-            row, outs = {}, {}
+            row, outs, calls = {}, {}, {}
             for name, (cls, channels_last) in variants.items():
                 i3d.S2D_CHANNELS_LAST = channels_last
                 m = _stem_module(cls, w)
@@ -798,8 +1006,18 @@ def stem_phase(seed: int) -> dict:
 
                 fwd_bwd()
                 outs[name] = (fwd(), m.conv3d.weight.grad.clone(), m.bn.weight.grad.clone())
-                row[name] = {"fwd_ms": cuda_ms(fwd, 10), "fwd_bwd_ms": cuda_ms(fwd_bwd, 10)}
-                del m
+                calls[name] = {"fwd_ms": fwd, "fwd_bwd_ms": fwd_bwd}
+            # the variants in turns, STEM_ROUNDS rounds; each one's median
+            rounds = {name: {metric: [] for metric in calls[name]} for name in variants}
+            for _ in range(STEM_ROUNDS):
+                for name, (_, channels_last) in variants.items():
+                    i3d.S2D_CHANNELS_LAST = channels_last
+                    for metric, fn in calls[name].items():
+                        rounds[name][metric].append(cuda_ms(fn, 10))
+            for name in variants:
+                row[name] = {metric: float(np.median(v)) for metric, v in rounds[name].items()}
+                row[name]["rounds_ms"] = rounds[name]
+            del calls
             for name in ("s2d_ncdhw", "s2d_channels_last"):
                 row[name]["errs"] = {
                     part: _within(a, b, f"{name} {use} {part}")
@@ -1010,6 +1228,14 @@ def _train_cli(cli, argv: list, step_want: dict, batch_want: dict,
     if total != want:
         raise AssertionError(f"{cli.__name__} {argv}: launches {total}, want {want} "
                              f"({steps} train steps, {batches} validation batches)")
+    ts = tr.train_step  # the Trainer's step: captured once, then replayed
+    if not (isinstance(ts, graph.GraphedStep) and ts.captures == 1
+            and ts.replays == steps - graph.WARMUP):
+        raise AssertionError(f"{cli.__name__} {argv}: the train step {type(ts).__name__} made "
+                             f"{getattr(ts, 'captures', 0)} captures and "
+                             f"{getattr(ts, 'replays', 0)} replays in {steps} steps, want 1 and "
+                             f"{steps - graph.WARMUP}")
+    tr.graph_counts = {"captures": ts.captures, "replays": ts.replays}
     return tr, rows
 
 
@@ -1083,6 +1309,7 @@ def trainer_phase(big_bn: int, tf32_defaults: tuple, keep_dir: str) -> dict:
         first, res["ucf101"] = _train_cli(
             train_ucf101, TRAINER_ARGV + ["--epochs", "2", "--save_root", root,
                                           "--exp_id", "ucf101"], step_want, batch_want)
+        res["graph"] = {"ucf101": first.graph_counts}
         ckpt = next((os.path.join(first.save_dir, f"best_model_{tag}_loss_2")
                      for tag in ("train", "val")
                      if os.path.isdir(os.path.join(first.save_dir, f"best_model_{tag}_loss_2"))),
@@ -1100,6 +1327,7 @@ def trainer_phase(big_bn: int, tf32_defaults: tuple, keep_dir: str) -> dict:
             train_ucf101, TRAINER_ARGV + ["--epochs", "3", "--save_root", root,
                                           "--exp_id", "ucf101_resumed", "--resume", ckpt],
             step_want, batch_want, sync_probe_epoch=3)
+        res["graph"]["ucf101_resumed"] = second.graph_counts
         got = {k: v for k, v in second.restored.items() if k != "seconds"}
         want = {"next_epoch": 3, "lr": first.state.learning_rate(),
                 "best": first.scheduler.best, "bad": first.scheduler.num_bad_epochs,
@@ -1120,6 +1348,7 @@ def trainer_phase(big_bn: int, tf32_defaults: tuple, keep_dir: str) -> dict:
         jhmdb, res["jhmdb"] = _train_cli(
             train_jhmdb, TRAINER_ARGV + ["--epochs", "1", "--save_root", root,
                                          "--exp_id", "jhmdb"], step_want, batch_want)
+        res["graph"]["jhmdb"] = jhmdb.graph_counts
         res["evaluate_jhmdb"] = _sweep(
             evaluate_jhmdb, ["--ckpt", jhmdb.save_dir, "--synthetic", "--split", "train"],
             jhmdb.save_dir, "train", 21)
@@ -1910,38 +2139,52 @@ def main() -> int:
           f"{max(g['err'] for g in ts['stable_grads']):.2e}; {nz['n']} noisy gradients: "
           f"relative L2 {nz['rel_l2']:.2e} vs band {nz['band_rel_l2']:.2e}")
 
-    # 8 the training main path at full width, bf16
-    tr, one_step = train_main_path(args.seed)
-    results["train_bf16"] = tr
+    # 8 the training main path at full width, bf16: graphed, against eager;
+    # 9 where one warm train step spends its time: a replay, and an eager
+    # step, whose traces give phase 8 the replays' launches
+    tr_both, one_step, one_eager = train_main_path(args.seed)
+    results["train_bf16"] = tr_both
+    results["train_profile"] = prof = train_profile(tr_both, one_step, one_eager)
+    tr, te = tr_both["graphed"], tr_both["eager"]
+    ge = tr_both["graphed_vs_eager"]
     phase(8, "train", f"bench configuration bf16, batch {TRAIN_BS} (2B = {2 * TRAIN_BS}) of "
-          f"8x224^2, {TRAIN_STEPS} steps: launches {tr['launches']}, K3-K5 by conv "
-          f"{tr['launches_by_conv']} (K6 inputs per step "
-          f"{tr['big_bn_per_step']}), max_pool_bwd by channels {tr['pool_bwd_launches_by_c']}; "
+          f"8x224^2, {TRAIN_STEPS} steps through the graphed step ({tr['captures']} capture, "
+          f"{tr['replays']} replays): launches {tr['launches']}, K3-K5 by conv "
+          f"{tr['by_conv']} (K6 inputs per step "
+          f"{tr['big_bn_per_step']}), max_pool_bwd by channels {tr['pool_by_c']} (the "
+          f"{tr['counted_steps']} eager calls as the wrappers counted them, each replay as its "
+          f"trace shows, phase 9); "
           f"loss {tr['losses'][0]['loss']:.4f} -> "
           f"{tr['losses'][-1]['loss']:.4f}; parameters moved {tr['params_moved']}/"
-          f"{tr['n_params']}; median warm step {tr['warm_step_ms']:.2f} ms = "
-          f"{tr['clips_per_s']:.2f} train clips/s with each step synchronised (not the "
-          f"bench's back-to-back rate, phase 12); peak memory {tr['peak_mem_gib']:.2f} GiB "
-          f"({smi})")
+          f"{tr['n_params']}; against the eager step from the same state: bit for bit "
+          f"({ge['n_tensors']} tensors and the losses); median replayed step "
+          f"{tr['warm_step_ms']:.2f} ms = {tr['clips_per_s']:.2f} train clips/s, eager "
+          f"{te['warm_step_ms']:.2f} ms = {te['clips_per_s']:.2f}, each step synchronised (not "
+          f"the bench's back-to-back rate, phase 12); peak allocated memory "
+          f"{tr['peak_mem_gib']:.2f} GiB graphed (the graph's pool {tr['pool_gib']:.3f} GiB "
+          f"reserved, {tr['pool_allocated_gib']:.3f} of it allocated; reserved in all "
+          f"{tr['reserved_gib']:.2f}), {te['peak_mem_gib']:.2f} eager ({smi})")
+    tp, tq = prof["replay"], prof["eager"]
+    phase(9, "train-profile", "one replayed train step: " + (
+        f"wall {tp['wall_ms']:.2f} ms under the profiler, device {tp['device_ms']:.2f} ms in "
+        f"{tp['device_ops']:.0f} operations (busy {tp['busy_share']:.3f}; "
+        f"{tp['busy_share_of_warm_step']:.3f} of the unprofiled synchronised step), host "
+        f"{tp['host_ms']:.3f} ms a call; the eager step: wall {tq['wall_ms']:.2f} ms, device "
+        f"{tq['device_ms']:.2f} ms in {tq['device_ops']:.0f} operations (busy "
+        f"{tq['busy_share']:.3f}; {tq['busy_share_of_warm_step']:.3f}), host "
+        f"{tq['host_ms']:.3f} ms a call; the counted wrappers' CUDA functions in a replay's "
+        f"trace, the same as in the eager step's: " + ", ".join(
+            f"{k} {sum(v.values()):.0f} in {len(v)} names" for k, v in tp["kernel_counts"].items())
+        + "; replay kernels " + ", ".join(f"{k} {v:.3f} ms" for k, v in tp["kernel_ms"].items())
+        + "; top: " + ", ".join(f"{k['name'][:40]} {k['device_ms']:.2f}" for k in tp["top"][:6])))
 
-    # 9 where one warm train step spends its time
-    results["train_profile"] = tp = profile_call(one_step)
-    # the profiler slows the host: the busy share of an unprofiled warm step too
-    tp["busy_share_of_warm_step"] = tp["device_ms"] / tr["warm_step_ms"]
-    phase(9, "train-profile", "one train step: " + (
-        f"wall {tp['wall_ms']:.2f} ms under the profiler, device {tp['device_ms']:.2f} ms "
-        f"(busy {tp['busy_share']:.3f}; {tp['busy_share_of_warm_step']:.3f} of the "
-        f"unprofiled warm step); kernels " + ", ".join(
-            f"{k} {v:.3f} ms" for k, v in tp["kernel_ms"].items())
-        + "; top: " + ", ".join(f"{k['name'][:40]} {k['device_ms']:.2f}" for k in tp["top"][:6])
-        if tp["device_ms"] else "device time not measured (the profiler saw no CUDA activity)"))
-
-    del one_step  # phase 8's train state
+    del one_step, one_eager  # phase 8's train states
     torch.cuda.empty_cache()
 
     # 10 the plain stem against the space-to-depth stem
     results["stem"] = st = stem_phase(args.seed)
-    phase(10, "stem", "bf16, eval fwd / train fwd+bwd ms: " + "; ".join(
+    phase(10, "stem", f"bf16, eval fwd / train fwd+bwd ms, medians of {STEM_ROUNDS} rounds "
+          "in turns: " + "; ".join(
         f"{use} (B {STEM_BATCH[use]}): " + ", ".join(
             f"{k} {st[use][k]['fwd_ms']:.3f}/{st[use][k]['fwd_bwd_ms']:.3f}"
             for k in ("plain", "s2d_ncdhw", "s2d_channels_last"))
@@ -1985,7 +2228,8 @@ def main() -> int:
             f"epoch {r['epoch']}: {r['steps']} steps in {r['seconds']:.2f} s = "
             f"{r['clips_per_s']:.2f} clips/s, loss {r['loss']:.4f}" for r in trn[run])
             + f"; launches a step {trn[run][0]['launches_a_step']}, a val batch "
-            f"{trn[run][0]['launches_a_val_batch']} | {smi}")
+            f"{trn[run][0]['launches_a_val_batch']}; the graphed step "
+            f"{trn['graph'][run]} | {smi}")
     c = trn["checkpoint"]
     phase(13, "trainer", f"checkpoint {c['path']}: {c['bytes']} bytes, save {c['save_s']:.3f} s, "
           f"restore {c['restore_s']:.3f} s; resumed at epoch 3 with the LR and scheduler "
@@ -2020,7 +2264,7 @@ def main() -> int:
           f"{b['losses']} and parameters on both ranks after every step; launches a step per "
           f"rank {b['launches_a_step_per_rank']} (each rank {b['launches_per_rank']}); warm "
           f"rank step {b['warm_rank_step_ms']} ms (two ranks share the card) against the "
-          f"single-card step {tr['warm_step_ms']:.2f} ms (phase 8); gradient all-reduce "
+          f"single-card eager step {te['warm_step_ms']:.2f} ms (phase 8); gradient all-reduce "
           f"(gloo, ~192 MB f32) {b['grad_allreduce_ms']} ms a rank; spawn wall "
           f"{b['wall_s']:.1f} s | f32 96^2 step at world 2 against phase 7's card step: "
           f"BN stats {band['stats_max_rel']:.2e}, losses (band) " + ", ".join(
@@ -2092,7 +2336,7 @@ def main() -> int:
         # the launches the wrapper counted at that conv's Co
         {"name": f"{name}/{conv}", "route": "cuda", "source": "picad_tpu_torch/csrc/tap_conv.cu",
          "replaces": f"picad_tpu/ops/tapconv.py:{line}",
-         "launches": tr["launches_by_conv"][name][conv], "max_abs_err": k35[conv][name]["err"],
+         "launches": tr["by_conv"][name][conv], "max_abs_err": k35[conv][name]["err"],
          "ms": k35[conv][name]["kernel_ms"], "plain_ms": k35[conv][name]["plain_ms"],
          "bound_ms": k35[conv][name]["bound_ms"], "bound_by": k35[conv][name]["bound_by"],
          "library_ms": k35[conv][name]["library_ms"]}
@@ -2102,7 +2346,7 @@ def main() -> int:
         {"name": f"max_pool_bwd/{c['pool']}", "route": "cuda",
          "source": "picad_tpu_torch/csrc/max_pool_bwd.cu",
          "replaces": "picad_tpu/ops/convops.py:198 (XLA select-and-scatter)",
-         "launches": tr["pool_bwd_launches_by_c"][ch], "max_abs_err": c["max_abs_err"],
+         "launches": tr["pool_by_c"][ch], "max_abs_err": c["max_abs_err"],
          "ms": c["kernel_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
         for ch in POOL_BWD_SHAPES

@@ -21,7 +21,9 @@ in plain torch (picad_tpu/ops/bn_stats.py:181-191).
 - On a CPU tensor it runs `bn_stats_plain`, which the kernel is also
   held against on the card.
 
-`bn_stats.launches` counts kernel launches, and nothing else.
+`bn_stats.launches` counts kernel launches, and nothing else: a replay
+of the captured train step (train/graph.py), which calls no wrapper,
+adds what its capture counted.
 """
 
 from __future__ import annotations

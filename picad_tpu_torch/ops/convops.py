@@ -22,7 +22,9 @@ are thin wrappers over torch's convolutions that add what torch lacks:
   atomic max_pool3d_with_indices_backward), `max_pool_bwd_plain` on a
   CPU tensor.  `max_pool_bwd.launches` counts kernel launches, and
   nothing else; `launches_by_c` counts the same launches by the pooled
-  tensor's channel count, which tells a model's pools apart.
+  tensor's channel count, which tells a model's pools apart.  A replay
+  of the captured train step (train/graph.py), which calls no wrapper,
+  adds what its capture counted.
 """
 
 from __future__ import annotations

@@ -36,7 +36,9 @@ Kernels are built with nvcc at first use and bound with ctypes.  On a
 CUDA tensor a wrapper launches its kernel or raises: there is no
 fallback.  The plain versions are also what the kernels are held against
 on the card.  `composite_convt.launches` and `composite_convt_bwd.launches`
-count kernel launches, and nothing else.
+count kernel launches, and nothing else: a replay of the captured train
+step (train/graph.py), which calls no wrapper, adds what its capture
+counted.
 """
 
 from __future__ import annotations

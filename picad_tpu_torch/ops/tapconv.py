@@ -47,7 +47,8 @@ CUDA tensor a wrapper launches its kernel or raises: there is no switch,
 no shape gate and no fallback.  `tap_conv_fwd.launches`,
 `tap_conv_dx.launches` and `tap_conv_dw.launches` count kernel launches,
 and nothing else; `launches_by_co` counts the same launches by Co, which
-tells a model's convs apart.  The `*_library` functions are cuDNN
+tells a model's convs apart.  A replay of the captured train step
+(train/graph.py), which calls no wrapper, adds what its capture counted.  The `*_library` functions are cuDNN
 yardsticks that chip_smoke.py times beside the kernels; the port never
 calls them.
 """

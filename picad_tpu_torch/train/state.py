@@ -35,9 +35,14 @@ class TrainState:
         return float(self.optimizer.param_groups[0]["lr"])
 
     def with_learning_rate(self, lr: float) -> "TrainState":
-        """Set the live learning rate of every parameter group."""
+        """Set the live learning rate of every parameter group: a tensor
+        rate (train/optimizer.py's fused Adam) is filled in place, where
+        the train step's CUDA graph reads it."""
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
         return self
 
     def with_scheduler(self, scheduler) -> "TrainState":
@@ -70,7 +75,8 @@ def create_train_state(
     train-mode CapsNet of `build_train_capsnet` (weights from
     `state_dict` or seeded with `seed`; `model_kwargs` are its options,
     e.g. bn_groups, dropout_rate, compute_dtype), the optimizer of
-    `make_optimizer` (Adam with `eps`; AdamW with `weight_decay`), and
+    `make_optimizer` (Adam with `eps`; AdamW with `weight_decay`; fused,
+    with a tensor lr, on a card outside a process group), and
     the dropout generator, seeded with `seed` on the same device.
 
     Inside a process group every rank builds the same weights from

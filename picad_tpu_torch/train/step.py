@@ -52,6 +52,7 @@ from picad_tpu_torch.models.i3d import s2d_pack
 from picad_tpu_torch.objectives.losses import weighted_mse_outer
 from picad_tpu_torch.ops.masks import pixelwise_cyclic_variance, pixelwise_gradient
 from picad_tpu_torch.parallel.mesh import all_reduce_grads, global_sum
+from picad_tpu_torch.train.graph import GraphedStep
 
 
 def _to(a, device: torch.device) -> torch.Tensor:
@@ -155,7 +156,9 @@ def compute_losses(output, flip_op, scores, seg_gt, action, flags, row_mask,
 
     output / flip_op (B, T, H, W) seg logits of the two views (flip_op
     still flipped), scores (B, C) of the original view; action (B,)
-    int64, flags and row_mask (B,) f32.  Returns (total, metrics)."""
+    int64, flags and row_mask (B,) f32; wt_ramp a float or a 0-d tensor
+    (f64 multiplies by the float's f32 values, w and 1 - w rounded from
+    double, bit for bit).  Returns (total, metrics)."""
     lm = flags * row_mask  # 1.0 for real labelled rows
     loc_loss = _masked_bce(output, seg_gt, lm) + _LOC_LOSS[loss_cfg.loc_loss](output, seg_gt, lm)
     cls_loss = _masked_spread(scores, action, lm, loss_cfg.spread_m_min, loss_cfg.spread_m_max)
@@ -181,7 +184,11 @@ def compute_losses(output, flip_op, scores, seg_gt, action, flags, row_mask,
             window=loss_cfg.n_frames, use_sigmoid=loss_cfg.predict_maps)
         loss_var_1 = masked_mean(clck * diff_sq)
         loss_var_2 = masked_mean(torch.flip(anticlck, dims=[1]) * diff_sq)
-        cons_bv = wt_ramp * (loss_var_1 + loss_var_2) + (1.0 - wt_ramp) * loss_simple_l2
+        if isinstance(wt_ramp, torch.Tensor):  # the graphed step's, written at each replay
+            w, w_rest = wt_ramp.float(), (1.0 - wt_ramp).float()
+        else:
+            w, w_rest = wt_ramp, 1.0 - wt_ramp
+        cons_bv = w * (loss_var_1 + loss_var_2) + w_rest * loss_simple_l2
         cons = cons_bv
     if loss_cfg.gv:
         grad_w = pixelwise_gradient(
@@ -226,6 +233,10 @@ def make_train_step(loss_cfg: LossConfig, *, device=None, grad_metrics: bool = F
     loss_consistency, acc.  The gradients stay in the parameters' `.grad`
     after the step.
 
+    On a card the step captures itself as one CUDA graph per key after
+    graph.WARMUP eager calls, and replays it from then on
+    (train/graph.py); its `eager_step` is the eager step, as on the CPU.
+
     `grad_metrics` adds `grad_norm`, the global L2 of the raw gradients
     (picad_tpu/train/step.py:192-202, the on-device half of the
     reference's `wandb.watch(model)`, main_jhmdb.py:422).  Off by
@@ -241,13 +252,16 @@ def make_train_step(loss_cfg: LossConfig, *, device=None, grad_metrics: bool = F
         print(f"note: const_loss='{loss_cfg.const_loss}' behaves as weighted "
               "MSE, matching the reference's actual computation")
 
-    def train_step(state, batch, epoch, wt_ramp):
-        model, optimizer = state.model, state.optimizer
+    def check(state):
         if state.device.type != dev.type or dev.index not in (None, state.device.index):
             raise ValueError(f"the train state is on {state.device}, the step on {dev}")
-        if model.bn_groups not in (1, 2):
+        if state.model.bn_groups not in (1, 2):
             raise ValueError(f"the train step needs a model with bn_groups 1 or 2, "
-                             f"not {model.bn_groups}")
+                             f"not {state.model.bn_groups}")
+
+    def run(state, batch, epoch, wt_ramp) -> dict:
+        """Forward, losses, backward and update -> the metrics."""
+        model, optimizer = state.model, state.optimizer
         model.train()
         data, aug, seg_gt = prepare_views(batch, dev)
         action, flags, row_mask = _labels(batch, dev)
@@ -270,10 +284,17 @@ def make_train_step(loss_cfg: LossConfig, *, device=None, grad_metrics: bool = F
         if grad_metrics:
             metrics["grad_norm"] = global_grad_norm(model.parameters())
         optimizer.step()
+        return metrics
+
+    def train_step(state, batch, epoch, wt_ramp):
+        check(state)
+        metrics = run(state, batch, epoch, wt_ramp)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
-    return train_step
+    if dev.type != "cuda":
+        return train_step
+    return GraphedStep(train_step, run, check, loss_cfg.thresh_epoch, dev)
 
 
 def make_val_step(loss_cfg: LossConfig, *, device=None):

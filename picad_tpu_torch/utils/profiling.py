@@ -14,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import os
+import re
 import subprocess
 import time
 
@@ -153,17 +154,69 @@ KERNEL_FRAGMENTS = {"composite_convt": ("composite_convt_kernel", "composite_con
                     "tap_conv_dx": ("tap_conv_dx_",),
                     "tap_conv_dw": ("tap_conv_dw_",)}
 COPY_PREFIXES = {"htod": "Memcpy HtoD", "dtoh": "Memcpy DtoH"}
+# every kernel wrapper that counts its launches, by its CUDA functions'
+# names: KERNEL_FRAGMENTS' six and the strided pools' backward (its two
+# passes, not preceded by a letter or "_": torch has a vectorized_gather_kernel)
+COUNTED_KERNELS = {k: re.compile("|".join(map(re.escape, frags)))
+                   for k, frags in KERNEL_FRAGMENTS.items()} | {
+    "max_pool_bwd": re.compile(r"(?<![A-Za-z_])(first_max_kernel|gather_kernel)")}
 
 
 def launch_counters() -> tuple:
     """The kernel wrappers, in KERNEL_FRAGMENTS' order: each adds one to
-    its `launches` where it launches its kernel, and nowhere else."""
+    its `launches` where it launches its kernel, and nowhere else; a
+    replay of the captured train step adds what its capture counted
+    (`add_launches`)."""
     from picad_tpu_torch.ops import tapconv
     from picad_tpu_torch.ops.bn_stats import bn_stats
     from picad_tpu_torch.ops.fused_head_kernel import composite_convt, composite_convt_bwd
 
     return (composite_convt, composite_convt_bwd, bn_stats, tapconv.tap_conv_fwd,
             tapconv.tap_conv_dx, tapconv.tap_conv_dw)
+
+
+def launch_state() -> dict:
+    """Every count of every wrapper that counts its launches (the six of
+    launch_counters() and the strided pools' backward): {(wrapper,
+    attribute): the int `launches`, or a copy of a `launches_by_*` dict}."""
+    from picad_tpu_torch.ops.convops import max_pool_bwd
+
+    return {(fn, a): dict(v) if isinstance(v, dict) else v
+            for fn in launch_counters() + (max_pool_bwd,)
+            for a, v in vars(fn).items() if a.startswith("launches")}
+
+
+def launches_between(before: dict, after: dict) -> dict:
+    """The counts made from one launch_state() to a later one, the
+    counters that moved only."""
+    out = {}
+    for key, v in after.items():
+        if isinstance(v, dict):
+            b = before[key]
+            d = {k: n - b.get(k, 0) for k, n in v.items() if n != b.get(k, 0)}
+        else:
+            d = v - before[key]
+        if d:
+            out[key] = d
+    return out
+
+
+def set_launch_state(state: dict) -> None:
+    """Put back the counts of a launch_state()."""
+    for (fn, a), v in state.items():
+        setattr(fn, a, dict(v) if isinstance(v, dict) else v)
+
+
+def add_launches(delta: dict) -> None:
+    """Add launches_between's counts to the wrappers' (train/graph.py:
+    what a captured step's capture counted, at each replay)."""
+    for (fn, a), d in delta.items():
+        if isinstance(d, dict):
+            counts = getattr(fn, a)
+            for k, n in d.items():
+                counts[k] = counts.get(k, 0) + n
+        else:
+            setattr(fn, a, getattr(fn, a) + d)
 
 
 def reset_launches() -> None:
@@ -180,8 +233,10 @@ def read_launches() -> dict:
 def profile_call(fn, calls: int = 1) -> dict:
     """torch.profiler over `calls` warm calls of fn, per call: wall time,
     the summed device time (kernels, copies, fills), its share of the
-    wall, the host<->card copies, each port kernel's time, and the entries
-    with the most device time.  fn runs `calls + 2` times: once
+    wall, the host<->card copies, each port kernel's time, the instances
+    of each counted wrapper's CUDA functions by name (`kernel_counts`,
+    COUNTED_KERNELS; what a CUDA graph's replay launched, which no
+    wrapper counts), and the entries with the most device time.  fn runs `calls + 2` times: once
     unprofiled, once as the profiler's warm-up step (traced, not kept: a
     window that starts cold can miss its first copies), then the window."""
     from torch.profiler import profile, schedule
@@ -233,6 +288,8 @@ def profile_call(fn, calls: int = 1) -> dict:
                     for k, p in COPY_PREFIXES.items()},
         "kernel_ms": {k: sum(ms for name, (ms, _) in top if any(f in name for f in frags))
                       for k, frags in KERNEL_FRAGMENTS.items()},
+        "kernel_counts": {k: {name: n / calls for name, (_, n) in top if pat.search(name)}
+                          for k, pat in COUNTED_KERNELS.items()},
         "top": [{"name": k, "device_ms": ms, "count": n / calls} for k, (ms, n) in top[:25]],
         "convs": convs[:15],
     }

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, held against their plain versions.
+"""The port's CUDA kernels on the card, held against their plain versions,
+and the train step's CUDA graph (train/graph.py) against the eager step.
 
 Every test here is marked `cuda` and asks the `card` fixture for the
 device, which skips without one: a CUDA kernel has no CPU mode.  On the
@@ -914,3 +915,138 @@ def test_serving_artifact_on_card(card, tmp_path):
     assert (scores.argmax(1) == scores_l.argmax(1)).all()
     with pytest.raises(ValueError, match="traced on 'cuda'"):
         load_artifact(out, device="cpu")
+
+
+# ---- the graphed train step (train/graph.py) on the card -----------------
+
+GRAPH_HW, GRAPH_BS = 96, 2  # a small bf16 step; chip_smoke.py phase 8 runs the full width
+
+
+def _graph_batch(seed=0):
+    from picad_tpu_torch.bench.train import synthetic_batch
+
+    return synthetic_batch(np.random.default_rng(seed), GRAPH_BS, (GRAPH_HW, GRAPH_HW))
+
+
+def _graphed_against_eager(plan, dropout=0.5):
+    from chip_smoke import graphed_against_eager
+
+    return graphed_against_eager(plan, _graph_batch(), seed=3, dropout=dropout)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+def test_replayed_steps_equal_eager_steps_bit_for_bit(card, dropout):
+    """6 steps through the graphed step (the warm-ups, one capture, then
+    replays) against 6 eager steps from the same seeded state: losses,
+    parameters, BN running stats, Adam's moments and step counts, and
+    the dropout generator's state, bit for bit."""
+    from picad_tpu_torch.train import graph
+
+    res = _graphed_against_eager([("graphed", 12.0, 0.5, None)] * 6, dropout)
+    assert res["bitwise"], res
+    assert (res["captures"], res["replays"]) == (1, 6 - graph.WARMUP), res
+
+
+def test_eager_and_replayed_steps_taking_turns_equal_eager_steps(card):
+    """Once captured, replays and eager steps on one state take turns:
+    one parameter, moment and dropout stream, the same as eager steps
+    throughout."""
+    from picad_tpu_torch.train import graph
+
+    g, e = ("graphed", 12.0, 0.5, None), ("eager", 12.0, 0.5, None)
+    res = _graphed_against_eager([g] * (graph.WARMUP + 1) + [e, g, e, g])
+    assert res["bitwise"], res
+    assert (res["captures"], res["replays"]) == (1, 3), res
+
+
+def test_lr_and_ramp_changes_reach_the_next_replay(card):
+    """with_learning_rate and another wt_ramp between replays: the replays
+    take both, as the eager steps do."""
+    from picad_tpu_torch.train import graph
+
+    warm = [("graphed", 12.0, 0.5, None)] * (graph.WARMUP + 1)
+    res = _graphed_against_eager(warm + [("graphed", 12.0, 0.2, 3e-5),
+                                         ("graphed", 12.0, 0.9, 1e-3)])
+    assert res["bitwise"], res
+    assert (res["captures"], res["replays"]) == (1, 3), res
+    same = _graphed_against_eager(warm + [("graphed", 12.0, 0.5, None)] * 2)
+    assert same["losses"][-1] != res["losses"][-1]  # the changes moved the step
+
+
+def test_crossing_thresh_epoch_captures_a_second_graph(card):
+    """epoch 10 then 12 around thresh_epoch 11: a graph for each side of
+    the pseudo-label branch, both bit for bit the eager steps."""
+    from picad_tpu_torch.train import graph
+
+    n = graph.WARMUP + 2
+    res = _graphed_against_eager([("graphed", 10.0, 0.5, None)] * n
+                                 + [("graphed", 12.0, 0.5, None)] * n)
+    assert res["bitwise"], res
+    assert (res["captures"], res["graphs"], res["replays"]) == (2, 2, 4), res
+
+
+def test_a_replay_counts_what_an_eager_step_launches(card):
+    """A replay launches, by its trace, the same instances of K1-K6's and
+    the pool backward's CUDA functions as an eager step, and the eager
+    step's trace shows every wrapper that counted a launch and no other
+    (at this size no BN input reaches K6); and each launch counter, the
+    six of the bench's kernel table and the pool backward's by channels,
+    reads per replay what the wrappers count for one eager step."""
+    from picad_tpu_torch.config import LossConfig
+    from picad_tpu_torch.ops import convops
+    from picad_tpu_torch.train import graph
+    from picad_tpu_torch.train.state import create_train_state
+    from picad_tpu_torch.train.step import make_train_step
+    from picad_tpu_torch.utils.profiling import launch_state, launches_between, profile_call
+
+    cfg = LossConfig(bv=True, n_frames=5, wt_cons=0.1, thresh_epoch=11)
+    state = create_train_state(seed=0, device=card, bn_groups=2)
+    batch = _graph_batch()
+    graphed = make_train_step(cfg)
+    eager = graphed.eager_step
+
+    def counted(step, n=1):
+        torch.cuda.synchronize()
+        before = launch_state()
+        for _ in range(n):
+            step(state, batch, 12.0, 0.5)
+        torch.cuda.synchronize()
+        return launches_between(before, launch_state())
+
+    one = counted(eager)
+    assert one[(convops.max_pool_bwd, "launches")] == 3 and len(one) > 6, one
+    for _ in range(graph.WARMUP):
+        assert counted(graphed) == one  # the warm-ups: eager
+    assert counted(graphed) == one and graphed.captures == 1  # the capture, then its replay
+    three = counted(graphed, 3)
+    assert three == {k: ({c: 3 * n for c, n in v.items()} if isinstance(v, dict) else 3 * v)
+                     for k, v in one.items()}
+    assert graphed.replays == 4
+    # what the replays launched, in their trace (profile_call: 3 calls, the last traced)
+    in_replay = profile_call(lambda: graphed(state, batch, 12.0, 0.5))["kernel_counts"]
+    in_eager = profile_call(lambda: eager(state, batch, 12.0, 0.5))["kernel_counts"]
+    assert graphed.replays == 7
+    counted_by = {fn.__name__ for fn, a in one if a == "launches"}
+    traced = {k for k, names in in_eager.items() if names}
+    assert traced == counted_by and in_replay == in_eager, (in_replay, in_eager, counted_by)
+
+
+def test_the_optimizer_is_fused_on_the_card_and_plain_in_a_process_group(card):
+    """One card, no group: the fused capturable Adam with a 0-d lr tensor
+    (what the graphed step captures).  Inside a process group, whose step
+    stays eager: plain Adam with a float lr, as before the graphed step."""
+    from picad_tpu_torch.parallel import mesh
+    from picad_tpu_torch.train.optimizer import FusedAdam, make_optimizer
+
+    params = [torch.nn.Parameter(torch.ones(4, device=card))]
+    alone = make_optimizer(params, 1e-4)
+    assert isinstance(alone, FusedAdam) and alone.param_groups[0]["capturable"]
+    assert isinstance(alone.param_groups[0]["lr"], torch.Tensor)
+    mesh.initialize_distributed(f"tcp://localhost:{mesh.free_port()}", 1, 0,
+                                device=torch.device("cuda", 0), backend="gloo")
+    try:
+        grouped = make_optimizer(params, 1e-4)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert type(grouped) is torch.optim.Adam and grouped.param_groups[0]["lr"] == 1e-4
+    assert not grouped.param_groups[0]["fused"]
