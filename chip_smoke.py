@@ -31,8 +31,11 @@ failure exits non-zero (no phase is caught and passed over):
             train step's three strided pools (POOL_BWD_SHAPES) in bf16
             and f32 and with planted positive ties: f32 bit for bit, bf16
             within one bf16 ulp, and two launches on one input bit for
-            bit, timed beside torch's atomic
-            max_pool3d_with_indices_backward.  Kernel, plain
+            bit, timed in both types beside torch's atomic
+            max_pool3d_with_indices_backward and a copy_ of the bytes the
+            kernel must move; and, for ROADMAP W1, forward + backward of
+            the step's seven stride-1 pools (plain torch, no kernel) with
+            their device operations.  Kernel, plain
             and library times and the bound at the train shapes (K3-K5:
             cuDNN in NCHW and channels_last, the faster as library_ms;
             each tap kernel's useful TFLOP/s and its work ratio, the
@@ -90,9 +93,10 @@ failure exits non-zero (no phase is caught and passed over):
             time and the top entries; the host time of a call (enqueue
             only, the device idle before it) and the busy share of the
             unprofiled synchronised step, replay beside eager.  The
-            instances of K1-K6's and max_pool_bwd's two passes' CUDA
-            functions, by name, in the replay's trace must equal the
-            eager step's, none missing; phase 8's graphed launches are
+            instances of K1-K6's and max_pool_bwd's CUDA functions, by
+            name, in the replay's trace must equal the eager step's, none
+            missing, and max_pool_bwd's one function must run once per
+            strided pool (3 a step); phase 8's graphed launches are
             its eager calls' counts plus, per replay, what the eager
             step's wrappers count; what a replay adds to the counters
             (utils/profiling.add_launches, for the bench's traced run)
@@ -514,7 +518,8 @@ def check_pool_bwd(c: int, dtype, seed: int, timed: bool, ties: bool = False) ->
     order), bf16 within one bf16 ulp; two launches on the same input bit
     for bit.  Timed: the kernel, the plain version, torch's own backward
     (max_pool3d_with_indices_backward: atomics, not deterministic; on the
-    padded input) and the byte bound."""
+    padded input), a copy_ of the same bytes (x, y and g read, dx
+    written: what the card moves at best) and the byte bound."""
     shape, k, s = POOL_BWD_SHAPES[c]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
@@ -523,7 +528,7 @@ def check_pool_bwd(c: int, dtype, seed: int, timed: bool, ties: bool = False) ->
     xp = convops._pad_spatial(x, pads)
     y = F.max_pool3d(xp, k, s)
     g = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
-    args = (xp, y, g, k, s, tuple(lo for lo, _ in pads), shape[2:])
+    args = (x, y, g, k, s, tuple(lo for lo, _ in pads))
     out, again = convops.max_pool_bwd(*args), convops.max_pool_bwd(*args)
     torch.cuda.synchronize()
     ref = convops.max_pool_bwd_plain(*args)
@@ -540,10 +545,48 @@ def check_pool_bwd(c: int, dtype, seed: int, timed: bool, ties: bool = False) ->
         _, idx = torch.ops.aten.max_pool3d_with_indices(xp, list(k), list(s))
         res["library_ms"] = cuda_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
             g, xp, list(k), list(s), [0] * 3, [1] * 3, False, idx), 20)
-        # xp, y and g read once, dx written; a compare and at most an add a window tap
-        nbytes = (xp.numel() + 2 * y.numel() + x.numel()) * x.element_size()
+        # the copy floor: one flat copy_ of x + y elements moves as many bytes
+        # as the kernel must (x, y and g read, dx written)
+        src = torch.empty(x.numel() + y.numel(), dtype=dtype, device="cuda")
+        dst = torch.empty_like(src)
+        res["copy_ms"] = cuda_ms(lambda: dst.copy_(src), 20)
+        # x, y and g read once, dx written; a compare and at most an add a window tap
+        nbytes = (2 * x.numel() + 2 * y.numel()) * x.element_size()
         res["bound_ms"], res["bound_by"] = bound(nbytes, 2 * y.numel() * math.prod(k),
                                                  torch.float32)
+    return res
+
+
+# the train step's stride-1 max pools (the Inception blocks' branch 3,
+# models/i3d.py:146) at the bench's [data; aug] batch 16: Mixed_3b-3c after
+# MaxPool3d_3a (T 2, 28^2), Mixed_4b-4f after MaxPool3d_4a (T 1, 28^2)
+STRIDE1_POOL_SP = {name: (2, 28, 28) if name.startswith("Mixed_3") else (1, 28, 28)
+                   for name in i3d.INCEPTION_SPECS}
+
+
+def time_stride1_pools(seed: int) -> list:
+    """Forward + backward of max_pool_same_zero_pad at each stride-1 pool
+    of the train step, bf16 (plain torch: the separable pools and the
+    all-ties backward of convops._MaxPoolAxis, no kernel of the port):
+    device ms by CUDA events, and the device operations of one call in
+    its trace."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    res = []
+    for name, (cin, _) in i3d.INCEPTION_SPECS.items():
+        sp = STRIDE1_POOL_SP[name]
+        k = (1, 3, 3) if sp[0] == 1 else (3, 3, 3)  # models/i3d.py:146
+        x = torch.relu(torch.randn((16, cin, *sp), generator=gen, device="cuda")).to(
+            torch.bfloat16).requires_grad_(True)
+        g = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def fwd_bwd(x=x, g=g, k=k):
+            torch.autograd.grad(convops.max_pool_same_zero_pad(x, k, (1, 1, 1)), x, g)
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: convops.max_pool_same_zero_pad(x, k, (1, 1, 1)), 10)
+        res.append({"block": name, "shape": [16, cin, *sp], "window": list(k),
+                    "fwd_ms": fwd_ms, "fwd_bwd_ms": cuda_ms(fwd_bwd, 10),
+                    "device_ops": profile_call(fwd_bwd)["device_ops"]})
     return res
 
 
@@ -942,10 +985,13 @@ def train_profile(tr: dict, one_step, one_eager) -> dict:
     per_step = counts_scaled(tr["eager"]["counted"], div=TRAIN_STEPS)
     rk, ek = prof["replay"]["kernel_counts"], prof["eager"]["kernel_counts"]
     missing = sorted(k for k in ek if not ek[k])
-    if rk != ek or missing or prof["eager"]["counters"] != per_step:
+    pool_fns = sum(rk.get("max_pool_bwd", {}).values())  # one CUDA function a strided pool
+    if rk != ek or missing or prof["eager"]["counters"] != per_step \
+            or pool_fns != len(POOL_BWD_SHAPES):
         raise AssertionError(f"train profile: a replay's kernels by name {rk}, an eager step's "
-                             f"{ek} (none missing: {missing}); the eager step's counters "
-                             f"{prof['eager']['counters']}, want {per_step}")
+                             f"{ek} (none missing: {missing}; the pool backward's functions "
+                             f"{pool_fns}, want {len(POOL_BWD_SHAPES)}); the eager step's "
+                             f"counters {prof['eager']['counters']}, want {per_step}")
     g = tr["graphed"]
     g["replay_counts_from_trace"] = per_step
     g.update(counts_plus(g["counted"], counts_scaled(per_step, mul=g["replays"])))
@@ -1997,19 +2043,22 @@ def main() -> int:
             for k, (use, conv, dtype) in enumerate(itertools.product(
                 PCAPS_BATCH, PCAPS_CO, (torch.bfloat16, torch.float32)))]
     reset_pool_launches()
-    pools = [check_pool_bwd(c, dtype, args.seed + k, timed=(dtype == torch.bfloat16))
+    pools = [check_pool_bwd(c, dtype, args.seed + k, timed=True)
              for k, (c, dtype) in enumerate(itertools.product(
                  POOL_BWD_SHAPES, (torch.bfloat16, torch.float32)))]
     pools += [check_pool_bwd(c, torch.bfloat16, args.seed, timed=False, ties=True)
               for c in POOL_BWD_SHAPES]
+    n_checked = read_launches() | {"max_pool_bwd": convops.max_pool_bwd.launches}
+    stride1 = time_stride1_pools(args.seed)
     results.update(composite_convt=checks, composite_convt_bwd=bwd, bn_stats=stats,
                    bn_stats_stress=stress, tap_conv=taps, composite_plans=k12_plans,
-                   max_pool_bwd=pools)
-    n_checked = read_launches() | {"max_pool_bwd": convops.max_pool_bwd.launches}
+                   max_pool_bwd=pools, stride1_pools=stride1)
 
     def timing(c):
         return (f" kernel_ms {c['kernel_ms']:.4f} plain_ms {c['plain_ms']:.4f} library_ms "
-                f"{c['library_ms']:.4f} bound_us {1e3 * c['bound_ms']:.1f} ({c['bound_by']})"
+                f"{c['library_ms']:.4f}" + (f" copy_ms {c['copy_ms']:.4f}" if "copy_ms" in c
+                                            else "")
+                + f" bound_us {1e3 * c['bound_ms']:.1f} ({c['bound_by']})"
                 if "kernel_ms" in c else "")
 
     phase(3, "kernel", "tol 1e-4*max|plain| (+1 bf16 ulp): composite_convt " + "; ".join(
@@ -2041,6 +2090,11 @@ def main() -> int:
         + " | max_pool_bwd (tol: f32 bit for bit, bf16 1 ulp; twice bit for bit) " + "; ".join(
             f"{c['pool']} {c['dtype']}{' ties' if c['ties'] else ''} err {c['max_abs_err']:.2e} "
             f"(bitwise plain {c['bitwise_plain']})" + timing(c) for c in pools)
+        + " | stride-1 pools fwd+bwd (plain torch, bf16) " + "; ".join(
+            f"{c['block']} {tuple(c['shape'])} {c['fwd_bwd_ms']:.4f} ms (fwd {c['fwd_ms']:.4f}) "
+            f"in {c['device_ops']:.0f} device ops" for c in stride1)
+        + f" (in all {sum(c['fwd_bwd_ms'] for c in stride1):.4f} ms, "
+        f"{sum(c['device_ops'] for c in stride1):.0f} ops)"
         + f" | launches in this phase {n_checked} | {smi}")
 
     # 4 the slice, card vs CPU, f32, TF32 off
@@ -2176,6 +2230,7 @@ def main() -> int:
         f"trace, the same as in the eager step's: " + ", ".join(
             f"{k} {sum(v.values()):.0f} in {len(v)} names" for k, v in tp["kernel_counts"].items())
         + "; replay kernels " + ", ".join(f"{k} {v:.3f} ms" for k, v in tp["kernel_ms"].items())
+        + f", max_pool_bwd {tp['counted_ms']['max_pool_bwd']:.3f} ms"
         + "; top: " + ", ".join(f"{k['name'][:40]} {k['device_ms']:.2f}" for k in tp["top"][:6])))
 
     del one_step, one_eager  # phase 8's train states
@@ -2350,7 +2405,8 @@ def main() -> int:
          "ms": c["kernel_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
         for ch in POOL_BWD_SHAPES
-        for c in pools if "kernel_ms" in c and c["shape"] == list(POOL_BWD_SHAPES[ch][0])
+        for c in pools if "kernel_ms" in c and c["dtype"] == "bfloat16"
+        and c["shape"] == list(POOL_BWD_SHAPES[ch][0])
     ]}
     results["kernels"] = kernels["kernels"]
     os.makedirs("chiprun_out", exist_ok=True)

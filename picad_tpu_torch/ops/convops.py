@@ -17,10 +17,11 @@ are thin wrappers over torch's convolutions that add what torch lacks:
   the window's gradient.  Strided pools keep the joint pool, whose
   backward gives each window's gradient to its first maximum in scan
   order, as XLA's select-and-scatter does (convops.py:198).  That
-  backward is `max_pool_bwd`: the hand-written kernel
-  csrc/max_pool_bwd.cu on a CUDA tensor (deterministic, unlike torch's
-  atomic max_pool3d_with_indices_backward), `max_pool_bwd_plain` on a
-  CPU tensor.  `max_pool_bwd.launches` counts kernel launches, and
+  backward is `max_pool_bwd`, from the unpadded x (the pool saves x and
+  y, not a padded copy): the hand-written kernel csrc/max_pool_bwd.cu on
+  a CUDA tensor, one launch a pool (deterministic, unlike torch's atomic
+  max_pool3d_with_indices_backward), `max_pool_bwd_plain` on a CPU
+  tensor.  `max_pool_bwd.launches` counts kernel launches, and
   nothing else; `launches_by_c` counts the same launches by the pooled
   tensor's channel count, which tells a model's pools apart.  A replay
   of the captured train step (train/graph.py), which calls no wrapper,
@@ -123,24 +124,24 @@ def max_pool_same_zero_pad(x: torch.Tensor, kernel, stride) -> torch.Tensor:
 
 class _MaxPoolStrided(torch.autograd.Function):
     """Strided zero-padded max pool: forward F.max_poolNd on the padded
-    x (as torch runs it), backward `max_pool_bwd` on the saved padded x
-    and y (no indices kept)."""
+    x (as torch runs it), backward `max_pool_bwd` on the saved x and y
+    (no indices kept, and not the padded copy: the backward makes the
+    pads itself)."""
 
     @staticmethod
     def forward(ctx, x, kernel, stride):
         n = x.ndim - 2
         pads = [same_pads(x.shape[2 + i], kernel[i], stride[i]) for i in range(n)]
-        xp = _pad_spatial(x, pads)
-        y = _POOL[n](xp, kernel, stride)
-        ctx.save_for_backward(xp, y)
+        y = _POOL[n](_pad_spatial(x, pads), kernel, stride)
+        ctx.save_for_backward(x, y)
         ctx.kernel, ctx.stride = kernel, stride
-        ctx.lo, ctx.sp = tuple(lo for lo, _ in pads), tuple(x.shape[2:])
+        ctx.lo = tuple(lo for lo, _ in pads)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        xp, y = ctx.saved_tensors
-        return max_pool_bwd(xp, y, g, ctx.kernel, ctx.stride, ctx.lo, ctx.sp), None, None
+        x, y = ctx.saved_tensors
+        return max_pool_bwd(x, y, g, ctx.kernel, ctx.stride, ctx.lo), None, None
 
 
 def _windows(kernel, stride, od):
@@ -151,81 +152,80 @@ def _windows(kernel, stride, od):
             slice(t, t + s * (o - 1) + 1, s) for t, s, o in zip(tap, stride, od))
 
 
-def _check_pool_bwd(xp, y, g, kernel, stride, lo, sp) -> None:
-    n = xp.ndim - 2
-    od = tuple((p - k) // s + 1 for p, k, s in zip(xp.shape[2:], kernel, stride))
-    if not (len(kernel) == len(stride) == len(lo) == len(sp) == n and 1 <= n <= 3
-            and tuple(y.shape) == tuple(g.shape) == (*xp.shape[:2], *od)
-            and all(0 <= l and l + d <= p for l, d, p in zip(lo, sp, xp.shape[2:]))):
-        raise ValueError(f"max_pool_bwd: xp {tuple(xp.shape)}, y {tuple(y.shape)}, g "
+def _check_pool_bwd(x, y, g, kernel, stride, lo) -> None:
+    n = x.ndim - 2
+    if not (len(kernel) == len(stride) == len(lo) == n and 1 <= n <= 3
+            and tuple(y.shape) == tuple(g.shape) and y.shape[:2] == x.shape[:2]
+            and y.ndim == x.ndim and min(kernel) >= 1 and min(stride) >= 1 and min(lo) >= 0):
+        raise ValueError(f"max_pool_bwd: x {tuple(x.shape)}, y {tuple(y.shape)}, g "
                          f"{tuple(g.shape)} are not a pool of window {kernel}, stride "
-                         f"{stride} over x {sp} padded by {lo} below")
+                         f"{stride} over x padded by {lo} below")
 
 
-def max_pool_bwd_plain(xp, y, g, kernel, stride, lo, sp) -> torch.Tensor:
-    """Plain torch version of the kernel: xp the zero-padded input (N, C,
-    *padded), y = the pool of xp, g its gradient -> dx (N, C, *sp) in xp's
-    type, the x that xp pads by `lo` below.  For each tap in scan order,
-    the windows whose first maximum it is (equal to y, no earlier tap
-    equal) add g to it, in f32 (g rounded to xp's type first); the pads'
-    share is dropped."""
-    _check_pool_bwd(xp, y, g, kernel, stride, lo, sp)
-    acc_t = torch.float64 if xp.dtype == torch.float64 else torch.float32
-    gf = g.to(xp.dtype).to(acc_t)
-    acc = torch.zeros(xp.shape, dtype=acc_t, device=xp.device)
+def max_pool_bwd_plain(x, y, g, kernel, stride, lo) -> torch.Tensor:
+    """Plain torch version of the kernel: x (N, C, *sp), y the pool of x
+    zero-padded by `lo` below (and as far as the windows reach above), g
+    its gradient -> dx (N, C, *sp) in x's type.  For each tap in scan
+    order, the windows whose first maximum it is (equal to y, no earlier
+    tap equal) add g to it, in f32 (g rounded to x's type first); the
+    pads' share is dropped."""
+    _check_pool_bwd(x, y, g, kernel, stride, lo)
+    # the padded extent the windows read: (o - 1) * s + k
+    ext = [(o - 1) * s + k for o, k, s in zip(y.shape[2:], kernel, stride)]
+    xp = _pad_spatial(x, [(l, max(0, e - l - d)) for l, e, d in zip(lo, ext, x.shape[2:])])
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
+    gf = g.to(x.dtype).to(acc_t)
+    acc = torch.zeros(xp.shape, dtype=acc_t, device=x.device)
     found = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
     for win in _windows(kernel, stride, y.shape[2:]):
         sel = (xp[win] == y) & ~found
         found |= sel
         acc[win] += torch.where(sel, gf, 0.0)
-    inner = (slice(None), slice(None)) + tuple(slice(l, l + d) for l, d in zip(lo, sp))
-    return acc[inner].to(xp.dtype)
+    inner = (slice(None), slice(None)) + tuple(slice(l, l + d) for l, d in zip(lo, x.shape[2:]))
+    return acc[inner].to(x.dtype)
 
 
 def _pool_bwd_fn():
     from picad_tpu_torch.ops import _build
 
     fn = _build.load("max_pool_bwd").picad_max_pool_bwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def max_pool_bwd(xp, y, g, kernel, stride, lo, sp) -> torch.Tensor:
-    """The strided pools' backward (`max_pool_bwd_plain`'s function).
+def max_pool_bwd(x, y, g, kernel, stride, lo) -> torch.Tensor:
+    """The strided pools' backward (`max_pool_bwd_plain`'s function), from
+    the unpadded x.
 
     CPU tensors: the plain version.  CUDA tensors: csrc/max_pool_bwd.cu,
-    or raise."""
-    if xp.device.type == "cpu" and g.device.type == "cpu":
-        return max_pool_bwd_plain(xp, y, g, kernel, stride, lo, sp)
-    _check_pool_bwd(xp, y, g, kernel, stride, lo, sp)
-    if xp.device.type != "cuda" or y.device != xp.device or g.device != xp.device:
-        raise ValueError(f"max_pool_bwd: tensors on {[str(t.device) for t in (xp, y, g)]}; "
+    one launch, or raise."""
+    if x.device.type == "cpu" and g.device.type == "cpu":
+        return max_pool_bwd_plain(x, y, g, kernel, stride, lo)
+    _check_pool_bwd(x, y, g, kernel, stride, lo)
+    if x.device.type != "cuda" or y.device != x.device or g.device != x.device:
+        raise ValueError(f"max_pool_bwd: tensors on {[str(t.device) for t in (x, y, g)]}; "
                          "the kernel wants all of them on one CUDA device")
-    if xp.dtype not in (torch.float32, torch.bfloat16) or y.dtype != xp.dtype:
-        raise TypeError(f"max_pool_bwd kernel takes f32 or bf16 xp and y of one type, not "
-                        f"{xp.dtype} and {y.dtype}")
-    if math.prod(kernel) > 254:
-        raise ValueError(f"max_pool_bwd kernel: window {kernel} has more than 254 taps")
-    if xp.shape[0] * xp.shape[1] * (max(sp[0], y.shape[2]) if len(sp) == 3 else 1) > 2**31 - 1:
-        raise ValueError("max_pool_bwd kernel: its frames (N * C * T) exceed int32")
-    xp, y, g = xp.contiguous(), y.contiguous(), g.to(xp.dtype).contiguous()
-    dx = torch.empty((*xp.shape[:2], *sp), dtype=xp.dtype, device=xp.device)
-    first = torch.empty(y.shape, dtype=torch.uint8, device=xp.device)  # each window's max tap
-    lead = 3 - len(sp)  # a lower rank as leading dims of size 1
+    if x.dtype not in (torch.float32, torch.bfloat16) or y.dtype != x.dtype:
+        raise TypeError(f"max_pool_bwd kernel takes f32 or bf16 x and y of one type, not "
+                        f"{x.dtype} and {y.dtype}")
+    lead = 3 - len(lo)  # a lower rank as leading dims of size 1
     one, zero = (1,) * lead, (0,) * lead
-    with torch.cuda.device(xp.device):
+    sp, od = one + tuple(x.shape[2:]), one + tuple(y.shape[2:])
+    if max(math.prod(sp), math.prod(od), x.shape[0] * x.shape[1]) > 2**31 - 1:
+        raise ValueError("max_pool_bwd kernel: a plane or the count of planes exceeds int32")
+    x, y, g = x.contiguous(), y.contiguous(), g.to(x.dtype).contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
         err = _pool_bwd_fn()(
-            xp.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), first.data_ptr(),
-            xp.shape[0] * xp.shape[1], *(one + tuple(sp)), *(one + tuple(xp.shape[2:])),
-            *(one + tuple(y.shape[2:])), *(one + tuple(kernel)), *(one + tuple(stride)),
-            *(zero + tuple(lo)), int(xp.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), x.shape[0] * x.shape[1],
+            *sp, *od, *(one + tuple(kernel)), *(one + tuple(stride)), *(zero + tuple(lo)),
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"max_pool_bwd kernel launch failed: CUDA error {err}")
     max_pool_bwd.launches += 1
-    c = xp.shape[1]
+    c = x.shape[1]
     max_pool_bwd.launches_by_c[c] = max_pool_bwd.launches_by_c.get(c, 0) + 1
     return dx
 

@@ -155,11 +155,11 @@ KERNEL_FRAGMENTS = {"composite_convt": ("composite_convt_kernel", "composite_con
                     "tap_conv_dw": ("tap_conv_dw_",)}
 COPY_PREFIXES = {"htod": "Memcpy HtoD", "dtoh": "Memcpy DtoH"}
 # every kernel wrapper that counts its launches, by its CUDA functions'
-# names: KERNEL_FRAGMENTS' six and the strided pools' backward (its two
-# passes, not preceded by a letter or "_": torch has a vectorized_gather_kernel)
+# names: KERNEL_FRAGMENTS' six and the strided pools' backward (one
+# function, a name no torch kernel contains)
 COUNTED_KERNELS = {k: re.compile("|".join(map(re.escape, frags)))
                    for k, frags in KERNEL_FRAGMENTS.items()} | {
-    "max_pool_bwd": re.compile(r"(?<![A-Za-z_])(first_max_kernel|gather_kernel)")}
+    "max_pool_bwd": re.compile(re.escape("picad_pool_bwd"))}
 
 
 def launch_counters() -> tuple:
@@ -236,7 +236,8 @@ def profile_call(fn, calls: int = 1) -> dict:
     wall, the host<->card copies, each port kernel's time, the instances
     of each counted wrapper's CUDA functions by name (`kernel_counts`,
     COUNTED_KERNELS; what a CUDA graph's replay launched, which no
-    wrapper counts), and the entries with the most device time.  fn runs `calls + 2` times: once
+    wrapper counts) and their device ms (`counted_ms`), and the entries
+    with the most device time.  fn runs `calls + 2` times: once
     unprofiled, once as the profiler's warm-up step (traced, not kept: a
     window that starts cold can miss its first copies), then the window."""
     from torch.profiler import profile, schedule
@@ -290,6 +291,8 @@ def profile_call(fn, calls: int = 1) -> dict:
                       for k, frags in KERNEL_FRAGMENTS.items()},
         "kernel_counts": {k: {name: n / calls for name, (_, n) in top if pat.search(name)}
                           for k, pat in COUNTED_KERNELS.items()},
+        "counted_ms": {k: sum(ms for name, (ms, _) in top if pat.search(name))
+                       for k, pat in COUNTED_KERNELS.items()},
         "top": [{"name": k, "device_ms": ms, "count": n / calls} for k, (ms, n) in top[:25]],
         "convs": convs[:15],
     }

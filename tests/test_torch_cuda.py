@@ -839,27 +839,36 @@ def test_nccl_world_one_is_the_identity(card):
 
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,k,s", [
-    ((2, 8, 3, 23, 17), (1, 3, 3), (1, 2, 2)),  # odd H and W: a pad on each side
-    ((2, 8, 4, 22, 16), (1, 3, 3), (1, 2, 2)),  # even: one pad above
-    ((2, 8, 5, 9, 11), (3, 3, 3), (2, 1, 1)),  # up to 18 windows an element
-    ((2, 8, 3, 7, 10), (2, 2, 2), (2, 2, 2)),  # MaxPool3d_5a: one window an element
+@pytest.mark.parametrize("shape,k,s,offset", [
+    ((2, 8, 3, 23, 17), (1, 3, 3), (1, 2, 2), 0),  # odd H and W: a pad on each side
+    ((2, 8, 4, 22, 16), (1, 3, 3), (1, 2, 2), 0),  # even: one pad above
+    ((2, 8, 4, 16, 24), (1, 3, 3), (1, 2, 2), 0),  # rows of 16-byte vectors, as at MaxPool3d_2a
+    ((2, 8, 3, 13, 22), (1, 3, 3), (1, 2, 2), 0),  # a ragged vector tail, 44-byte bf16 rows
+    ((2, 8, 4, 16, 24), (1, 3, 3), (1, 2, 2), 1),  # x one element past an aligned address
+    ((2, 8, 5, 9, 11), (3, 3, 3), (2, 1, 1), 0),  # up to 18 windows an element
+    ((2, 8, 2, 14, 28), (3, 3, 3), (2, 1, 1), 0),  # 56-byte bf16 rows, as at MaxPool3d_4a
+    ((2, 8, 3, 12, 10), (3, 3, 3), (2, 1, 1), 0),  # a ragged tail, 20-byte bf16 rows
+    ((2, 8, 3, 7, 10), (2, 2, 2), (2, 2, 2), 0),  # MaxPool3d_5a: the run-time window
+    ((2, 8, 7, 9, 13), (3, 2, 3), (2, 1, 2), 0),  # another run-time window, pads on each side
 ])
-def test_max_pool_bwd_kernel_matches_plain(card, shape, k, s, dtype, ties):
+def test_max_pool_bwd_kernel_matches_plain(card, shape, k, s, offset, dtype, ties):
     """The strided pools' backward kernel against its plain version on
     post-ReLU inputs, with planted equal positive maxima (`ties`, the
     values rounded to integers): f32 bit for bit, bf16 within one bf16
-    ulp; twice on the same input, bit for bit."""
+    ulp; twice on the same input, bit for bit; one launch a call.  The
+    model's two windows run their compile-time instantiations, any other
+    window the run-time one."""
     from picad_tpu_torch.ops import convops
 
     g = torch.Generator(device=card).manual_seed(1)
     x = torch.relu(torch.randn(shape, generator=g, device=card))
     x = (x.round() if ties else x).to(dtype)
+    if offset:  # a contiguous view whose data starts off a vector boundary
+        x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(shape)
     pads = [convops.same_pads(d, kk, ss) for d, kk, ss in zip(shape[2:], k, s)]
-    xp = convops._pad_spatial(x, pads)
-    y = torch.nn.functional.max_pool3d(xp, k, s)
+    y = torch.nn.functional.max_pool3d(convops._pad_spatial(x, pads), k, s)
     gy = torch.randn(y.shape, generator=g, device=card).to(dtype)
-    args = (xp, y, gy, k, s, tuple(lo for lo, _ in pads), shape[2:])
+    args = (x, y, gy, k, s, tuple(lo for lo, _ in pads))
     before = convops.max_pool_bwd.launches
     out, again = convops.max_pool_bwd(*args), convops.max_pool_bwd(*args)
     torch.cuda.synchronize()
@@ -1029,6 +1038,8 @@ def test_a_replay_counts_what_an_eager_step_launches(card):
     counted_by = {fn.__name__ for fn, a in one if a == "launches"}
     traced = {k for k, names in in_eager.items() if names}
     assert traced == counted_by and in_replay == in_eager, (in_replay, in_eager, counted_by)
+    # the pool backward: one CUDA function a strided pool, three a step
+    assert sum(in_replay["max_pool_bwd"].values()) == 3, in_replay
 
 
 def test_the_optimizer_is_fused_on_the_card_and_plain_in_a_process_group(card):

@@ -122,5 +122,31 @@ def test_cpu_backward_launches_nothing_and_takes_f64():
     assert tconv.max_pool_bwd.launches == before
     with pytest.raises(ValueError, match="not a pool"):
         tconv.max_pool_bwd(torch.zeros(1, 1, 4, 4, 4), torch.zeros(1, 1, 2, 2, 2),
-                           torch.zeros(1, 1, 3, 3, 3), (2, 2, 2), (2, 2, 2), (0, 0, 0),
-                           (4, 4, 4))
+                           torch.zeros(1, 1, 3, 3, 3), (2, 2, 2), (2, 2, 2), (0, 0, 0))
+
+
+# the train step's three strided pools (models/i3d.py:48-50) at reduced batch,
+# channels and size: odd H (a low pad along H), and W 17, 22 and 10, which
+# leave a ragged tail of the kernel's 16-byte vectors
+TRAIN_POOLS = {"2a": ((1, 3, 3), (1, 2, 2), 4, 4), "3a": ((1, 3, 3), (1, 2, 2), 6, 2),
+               "4a": ((3, 3, 3), (2, 1, 1), 5, 3)}
+
+
+@pytest.mark.parametrize("kind", ["relu", "ties"])
+@pytest.mark.parametrize("w", [17, 22, 10])
+@pytest.mark.parametrize("pool", list(TRAIN_POOLS))
+def test_plain_backward_from_unpadded_x_matches_jax(pool, w, kind):
+    """max_pool_bwd_plain(x, y, g, kernel, stride, lo), the kernel's
+    plain version on the unpadded x and the low pads, against jax.grad of
+    the JAX package's max_pool_same_zero_pad; the pads count in the
+    windows and their share is dropped."""
+    k, s, c, t = TRAIN_POOLS[pool]
+    x = _input(kind, c, (t, 9, w), seed=w + len(pool + kind))
+    y_j, vjp = jax.vjp(lambda a: jconv.max_pool_same_zero_pad(a, k, s), jnp.asarray(x))
+    g = np.random.default_rng(w).standard_normal(y_j.shape).astype(np.float32)
+    (gx_j,) = vjp(jnp.asarray(g))
+    lo = tuple(tconv.same_pads(d, kk, ss)[0] for d, kk, ss in zip((t, 9, w), k, s))
+    assert lo[1] == 1 and lo[2] == (w % 2 if s[2] == 2 else 1)
+    gx = tconv.max_pool_bwd_plain(_cf(x), _cf(np.asarray(y_j)), _cf(g), k, s, lo)
+    gx_j = np.asarray(gx_j)
+    np.testing.assert_allclose(_cl(gx), gx_j, rtol=RTOL, atol=RTOL * np.abs(gx_j).max())
