@@ -33,9 +33,19 @@ failure exits non-zero (no phase is caught and passed over):
             within one bf16 ulp, and two launches on one input bit for
             bit, timed in both types beside torch's atomic
             max_pool3d_with_indices_backward and a copy_ of the bytes the
-            kernel must move; and, for ROADMAP W1, forward + backward of
-            the step's seven stride-1 pools (plain torch, no kernel) with
-            their device operations.  Kernel, plain
+            kernel must move; max_pool_axis and max_pool_axis_bwd (the
+            stride-1 pools' forward and backward, csrc/max_pool_s1.cu) at
+            every stage of the train step's seven stride-1 pools
+            (STRIDE1_POOL_SP, batch 16) in bf16 and f32, on post-ReLU x,
+            x with planted positive ties and negative x with inf and NaN
+            planted in g: each result bit for bit the plain chain
+            (compared on the bits), two launches bit for bit, timed in
+            bf16 beside the plain chain, the forward's F.max_pool3d on
+            the padded x (the backward has no library call: none gives a
+            window's gradient to every tied maximum), a copy_ of the bytes
+            each kernel must move and the byte bound; then each pool's
+            forward + backward and its device operations, through the
+            kernels and through the plain chain.  Kernel, plain
             and library times and the bound at the train shapes (K3-K5:
             cuDNN in NCHW and channels_last, the faster as library_ms;
             each tap kernel's useful TFLOP/s and its work ratio, the
@@ -48,8 +58,9 @@ failure exits non-zero (no phase is caught and passed over):
   5 serve   the main path, bf16: ServingModel with clip_batch_size 14,
             predict_clips on 17 clips and predict_video on a 64-frame 224^2
             video, launch counts set to 0 just before and read just after
-            (composite_convt must launch once per padded clip batch and
-            tap_conv_fwd twice: the pose and act convs);
+            (composite_convt must launch once per padded clip batch,
+            tap_conv_fwd twice: the pose and act convs, and max_pool_axis
+            16 times, once a stride-1 stage, and no pool backward);
             finite outputs of the right shapes; warm clips/s; the bf16 vs
             f32 deviation on the same clips.
   6 profile torch.profiler over one warm 14-clip predict_clips: wall
@@ -74,8 +85,10 @@ failure exits non-zero (no phase is caught and passed over):
             to 0 just before and read just after: K1 and K2 once per step,
             K6 once per BN input of >= 2^22 elements per step, K3, K4 and
             K5 twice per step (the pose and act convs), max_pool_bwd
-            once per strided pool per step (counted apart from the
-            bench's six, by the pool's channels); finite
+            once per strided pool per step, max_pool_axis and
+            max_pool_axis_bwd 16 times each a step, once a stride-1 stage
+            (the pool kernels counted apart from the bench's six, by the
+            pooled tensor's channels); finite
             losses, every parameter moved; the steps go through the
             graphed step (train/graph.py: the first hooked for the K6
             count and eager, graph.WARMUP warm-ups, one capture, then
@@ -93,10 +106,12 @@ failure exits non-zero (no phase is caught and passed over):
             time and the top entries; the host time of a call (enqueue
             only, the device idle before it) and the busy share of the
             unprofiled synchronised step, replay beside eager.  The
-            instances of K1-K6's and max_pool_bwd's CUDA functions, by
+            instances of K1-K6's and the pool kernels' CUDA functions, by
             name, in the replay's trace must equal the eager step's, none
-            missing, and max_pool_bwd's one function must run once per
-            strided pool (3 a step); phase 8's graphed launches are
+            missing; max_pool_bwd's one function must run once per
+            strided pool (3 a step), and max_pool_s1.cu's forward and
+            backward functions once a stride-1 stage (16 a step each);
+            phase 8's graphed launches are
             its eager calls' counts plus, per replay, what the eager
             step's wrappers count; what a replay adds to the counters
             (utils/profiling.add_launches, for the bench's traced run)
@@ -193,11 +208,13 @@ failure exits non-zero (no phase is caught and passed over):
  15 artifact the serving artifact (picad_tpu_torch/serve/export.py): the
             bf16 CapsNet of seeded weights exported at clip batch 14,
             224^2, saved and loaded with load_artifact; its graph holds
-            one picad.composite_convt and two picad.tap_conv_fwd nodes
-            (K1 and K3 kept as custom ops); predict_clips on 17 clips and
+            one picad.composite_convt, two picad.tap_conv_fwd and 16
+            picad.max_pool_axis nodes (K1, K3 and the stride-1 pools'
+            forward kept as custom ops); predict_clips on 17 clips and
             predict_video on a 64-frame video through the artifact, the
             launch counts set to 0 just before and read just after (K1
-            once and K3 twice a padded batch), against the in-process
+            once, K3 twice and max_pool_axis 16 times a padded batch),
+            against the in-process
             ServingModel within ARTIFACT_ATOL with the same classes (bit
             for bit recorded); export and load seconds, the artifact's
             bytes, the warm clips/s of both; then cli.export_model.main
@@ -505,10 +522,27 @@ def check_bn_stats_stress(seed) -> dict:
     return {"mean_rel_err": m_rel, "var_rel_err": v_rel}
 
 
+POOL_COUNTERS = (convops.max_pool_bwd, convops.max_pool_axis, convops.max_pool_axis_bwd)
+
+
 def reset_pool_launches() -> None:
-    """The pool backward's counter: apart from utils/profiling's six
-    (the bench's kernel table has no row for it)."""
-    convops.max_pool_bwd.launches, convops.max_pool_bwd.launches_by_c = 0, {}
+    """The pool kernels' counters: apart from utils/profiling's six (the
+    bench's kernel table has no row for them)."""
+    for fn in POOL_COUNTERS:
+        fn.launches, fn.launches_by_c = 0, {}
+
+
+def pool_launches() -> dict:
+    """The pool kernels' launches by the pooled tensor's channels."""
+    return {fn.__name__: dict(fn.launches_by_c) for fn in POOL_COUNTERS}
+
+
+def serve_pool_want(n_batches: int) -> dict:
+    """pool_launches() of n_batches eval forwards: each stride-1 stage's
+    forward once, no backward."""
+    return {"max_pool_bwd": {}, "max_pool_axis": {c: n * n_batches for c, n in
+                                                  STRIDE1_BY_C.items()},
+            "max_pool_axis_bwd": {}}
 
 
 def check_pool_bwd(c: int, dtype, seed: int, timed: bool, ties: bool = False) -> dict:
@@ -564,29 +598,239 @@ STRIDE1_POOL_SP = {name: (2, 28, 28) if name.startswith("Mixed_3") else (1, 28, 
                    for name in i3d.INCEPTION_SPECS}
 
 
+COLD_BYTES = 150e6  # operand sets rotated through per timed call: 3x the H100's 50 MB L2
+
+
+def graph_ms(calls: list, rounds: int = 5) -> float:
+    """Device ms of one call of `calls` (closures, each over its own
+    operands, so that a call finds them out of L2): warmed up on a side
+    stream, captured in one CUDA graph, the graph replayed `rounds` times
+    between CUDA events.  The host's dispatch (a custom op's, autograd's)
+    then costs no device time, as in the captured train step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (rounds * len(calls))
+
+
+def cold_copies(nbytes: float) -> int:
+    """Operand sets of `nbytes` that rotate through more than COLD_BYTES."""
+    return max(2, math.ceil(COLD_BYTES / nbytes))
+
+
+def stride1_window(sp) -> tuple:
+    return (1, 3, 3) if sp[0] == 1 else (3, 3, 3)  # models/i3d.py:145
+
+
+def stride1_stages(sp) -> list:
+    """(dim, k) of each stage of the pool over sp, as
+    convops.max_pool_same_zero_pad runs them."""
+    return [(2 + a, k) for a, k in enumerate(stride1_window(sp)) if k != 1]
+
+
+# csrc/max_pool_s1.cu's launches a forward, by the pooled tensor's channels
+# (Mixed_4c-4e share 512): one a stage, 16 in all
+STRIDE1_BY_C: dict = {}
+for _name, (_cin, _) in i3d.INCEPTION_SPECS.items():
+    STRIDE1_BY_C[_cin] = STRIDE1_BY_C.get(_cin, 0) + len(stride1_stages(STRIDE1_POOL_SP[_name]))
+STRIDE1_LAUNCHES = sum(STRIDE1_BY_C.values())
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """t's bits as integers: equal where the values are equal bit for bit
+    (a -0.0, a NaN's payload and an inf show)."""
+    return t.contiguous().view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[t.dtype])
+
+
+def bit_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[bool, float]:
+    """(bit for bit, max |out - ref| where the bits differ)."""
+    same = bits(out) == bits(ref)
+    d = torch.where(same, 0.0, (out.float() - ref.float()).abs().nan_to_num(float("inf")))
+    return bool(same.all()), d.max().item()
+
+
+def stride1_input(shape, kind: str, gen) -> torch.Tensor:
+    """post-ReLU x ("relu"), rounded to integers so that equal positive
+    maxima share most windows ("ties"), or negative everywhere so that the
+    zero pads win at the borders ("negative")."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if kind == "negative":
+        return -(x.abs() + 0.25)
+    x = torch.relu(x)
+    return x.round() if kind == "ties" else x
+
+
+def stride1_grad(shape, dtype, planted: bool, gen) -> torch.Tensor:
+    """g, with inf, -inf and NaN planted (0 * inf is NaN in both versions)."""
+    g = torch.randn(shape, generator=gen, device="cuda")
+    if planted:
+        flat = g.view(-1)
+        flat[::97] = float("inf")
+        flat[31::89] = float("-inf")
+        flat[57::83] = float("nan")
+    return g.to(dtype)
+
+
+def _stage_library(x, dim: int, k: int):
+    """One F.max_pool3d on the F.padded x: the stage's values, torch's call."""
+    lo, hi = convops.same_pads(x.shape[dim], k, 1)
+    window = tuple(k if d == dim else 1 for d in range(2, 5))
+    pads = [(lo, hi) if d == dim else (0, 0) for d in range(2, 5)]
+    return F.max_pool3d(convops._pad_spatial(x, pads), window, 1)
+
+
+def check_pool_s1(name: str, dtype, seed: int, timed: bool) -> dict:
+    """csrc/max_pool_s1.cu's forward and backward against their plain
+    versions (convops.max_pool_axis_plain, max_pool_axis_bwd_plain) at
+    every stage of the stride-1 pool of block `name` at the train shape:
+    post-ReLU x, x with planted ties, and negative x with planted inf and
+    NaN in g; each result bit for bit the plain version, and two launches
+    on one input bit for bit.  Timed (the post-ReLU input, graph_ms: in a
+    CUDA graph, operands out of L2): each stage's kernels and plain
+    versions, the forward's library call (F.max_pool3d on the padded x),
+    a copy_ of the bytes each kernel must move, and the byte bound; and
+    the kernels' back-to-back eager calls (cuda_ms), which the host's
+    dispatch paces."""
+    cin = i3d.INCEPTION_SPECS[name][0]
+    sp = STRIDE1_POOL_SP[name]
+    shape = (16, cin, *sp)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    res = {"block": name, "shape": list(shape), "window": list(stride1_window(sp)),
+           "dtype": str(dtype).replace("torch.", ""), "stages": []}
+    for kind in ("relu", "ties", "negative"):
+        x = stride1_input(shape, kind, gen).to(dtype)
+        for dim, k in stride1_stages(sp):
+            g = stride1_grad(shape, dtype, kind == "negative", gen)
+            y, y2 = convops.max_pool_axis(x, dim, k), convops.max_pool_axis(x, dim, k)
+            dx, dx2 = (convops.max_pool_axis_bwd(x, y, g, dim, k),
+                       convops.max_pool_axis_bwd(x, y, g, dim, k))
+            torch.cuda.synchronize()
+            y_ref = convops.max_pool_axis_plain(x, dim, k)
+            dx_ref = convops.max_pool_axis_bwd_plain(x, y_ref, g, dim, k)
+            (fwd_ok, fwd_err), (bwd_ok, bwd_err) = bit_err(y, y_ref), bit_err(dx, dx_ref)
+            st = {"kind": kind, "dim": dim, "k": k, "fwd_bitwise": fwd_ok, "fwd_err": fwd_err,
+                  "bwd_bitwise": bwd_ok, "bwd_err": bwd_err,
+                  "twice_bitwise": bool((bits(y) == bits(y2)).all()
+                                        and (bits(dx) == bits(dx2)).all()),
+                  "bwd_nan": int(dx_ref.isnan().sum())}
+            if not (fwd_ok and bwd_ok and st["twice_bitwise"]):
+                raise AssertionError(f"max_pool_axis {name} {shape} {dtype}: {st}")
+            if timed and kind == "relu":
+                n, es = x.numel(), x.element_size()
+                # operand sets in turn, each call's out of L2 (graph_ms)
+                sets = [{"x": x.clone(), "y": y.clone(), "g": g.clone(),
+                         "src": torch.empty(2 * n, dtype=dtype, device="cuda"),
+                         "dst": torch.empty(2 * n, dtype=dtype, device="cuda")}
+                        for _ in range(cold_copies(3 * n * es))]
+
+                def ms(fn):
+                    return graph_ms([functools.partial(fn, o) for o in sets])
+
+                st.update(
+                    fwd_ms=ms(lambda o: convops.max_pool_axis(o["x"], dim, k)),
+                    fwd_plain_ms=ms(lambda o: convops.max_pool_axis_plain(o["x"], dim, k)),
+                    fwd_library_ms=ms(lambda o: _stage_library(o["x"], dim, k)),
+                    # x read, y written: a copy_ of x's elements
+                    fwd_copy_ms=ms(lambda o: o["dst"][:n].copy_(o["src"][:n])),
+                    bwd_ms=ms(lambda o: convops.max_pool_axis_bwd(o["x"], o["y"], o["g"], dim, k)),
+                    bwd_plain_ms=ms(lambda o: convops.max_pool_axis_bwd_plain(
+                        o["x"], o["y"], o["g"], dim, k)),
+                    # x, y and g read, dx written: a copy_ of twice x's elements
+                    bwd_copy_ms=ms(lambda o: o["dst"].copy_(o["src"])),
+                    # the host-paced reading, back-to-back eager calls (cuda_ms)
+                    fwd_eager_ms=cuda_ms(lambda: convops.max_pool_axis(x, dim, k), 20),
+                    bwd_eager_ms=cuda_ms(lambda: convops.max_pool_axis_bwd(x, y, g, dim, k), 20))
+                del sets
+                # a compare a tap forward; a compare, a multiply and an add a tap backward
+                st["fwd_bound_ms"], st["fwd_bound_by"] = bound(2 * n * es, k * n, torch.float32)
+                st["bwd_bound_ms"], st["bwd_bound_by"] = bound(4 * n * es, 3 * k * n,
+                                                               torch.float32)
+            res["stages"].append(st)
+            x = y_ref  # the next stage pools this one's output, as the model does
+    if timed:
+        timed_st = [st for st in res["stages"] if "fwd_ms" in st]
+        for key in ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_copy_ms", "fwd_bound_ms",
+                    "bwd_ms", "bwd_plain_ms", "bwd_copy_ms", "bwd_bound_ms", "fwd_eager_ms",
+                    "bwd_eager_ms"):
+            res[key] = sum(st[key] for st in timed_st)  # the pool's stages, one after the other
+        res["fwd_bound_by"], res["bwd_bound_by"] = (timed_st[0]["fwd_bound_by"],
+                                                    timed_st[0]["bwd_bound_by"])
+    res["fwd_err"] = max(st["fwd_err"] for st in res["stages"])
+    res["bwd_err"] = max(st["bwd_err"] for st in res["stages"])
+    return res
+
+
+class _PlainAxis(torch.autograd.Function):
+    """A stride-1 stage through the plain chain on the card (the kernels'
+    yardstick, never on the port's path)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, k):
+        y = convops.max_pool_axis_plain(x, dim, k)
+        ctx.save_for_backward(x, y)
+        ctx.dim, ctx.k = dim, k
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return convops.max_pool_axis_bwd_plain(x, y, g, ctx.dim, ctx.k), None, None
+
+
+def plain_stride1_pool(x, k):
+    for a, kk in enumerate(k):
+        if kk != 1:
+            x = _PlainAxis.apply(x, 2 + a, kk)
+    return x
+
+
 def time_stride1_pools(seed: int) -> list:
-    """Forward + backward of max_pool_same_zero_pad at each stride-1 pool
-    of the train step, bf16 (plain torch: the separable pools and the
-    all-ties backward of convops._MaxPoolAxis, no kernel of the port):
-    device ms by CUDA events, and the device operations of one call in
-    its trace."""
+    """Forward + backward of each stride-1 pool of the train step, bf16:
+    max_pool_same_zero_pad (csrc/max_pool_s1.cu, one launch a stage each
+    way) and the same stages through the plain chain, in this call:
+    device ms in a CUDA graph over operands out of L2 (graph_ms), as a
+    replay of the train step runs them, and the device operations of one
+    eager call in its trace."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     res = []
     for name, (cin, _) in i3d.INCEPTION_SPECS.items():
         sp = STRIDE1_POOL_SP[name]
-        k = (1, 3, 3) if sp[0] == 1 else (3, 3, 3)  # models/i3d.py:146
+        k = stride1_window(sp)
         x = torch.relu(torch.randn((16, cin, *sp), generator=gen, device="cuda")).to(
-            torch.bfloat16).requires_grad_(True)
+            torch.bfloat16)
         g = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        sets = [(x.clone().requires_grad_(True), g.clone())
+                for _ in range(cold_copies(2 * x.numel() * x.element_size()))]
+        row = {"block": name, "shape": [16, cin, *sp], "window": list(k)}
+        for tag, pool in (("", lambda t, k=k: convops.max_pool_same_zero_pad(t, k, (1, 1, 1))),
+                          ("plain_", lambda t, k=k: plain_stride1_pool(t, k))):
+            def fwd_bwd(xs, gs, pool=pool):
+                torch.autograd.grad(pool(xs), xs, gs)
 
-        def fwd_bwd(x=x, g=g, k=k):
-            torch.autograd.grad(convops.max_pool_same_zero_pad(x, k, (1, 1, 1)), x, g)
+            def fwd(xs, gs, pool=pool):
+                with torch.no_grad():
+                    pool(xs)
 
-        with torch.no_grad():
-            fwd_ms = cuda_ms(lambda: convops.max_pool_same_zero_pad(x, k, (1, 1, 1)), 10)
-        res.append({"block": name, "shape": [16, cin, *sp], "window": list(k),
-                    "fwd_ms": fwd_ms, "fwd_bwd_ms": cuda_ms(fwd_bwd, 10),
-                    "device_ops": profile_call(fwd_bwd)["device_ops"]})
+            row[tag + "fwd_ms"] = graph_ms([functools.partial(fwd, *ops) for ops in sets])
+            row[tag + "fwd_bwd_ms"] = graph_ms([functools.partial(fwd_bwd, *ops) for ops in sets])
+            row[tag + "device_ops"] = profile_call(lambda: fwd_bwd(*sets[0]))["device_ops"]
+        res.append(row)
     return res
 
 
@@ -838,10 +1082,15 @@ def host_ms(fn, calls: int = 3) -> float:
 
 def counter_state() -> dict:
     """The launch counts phase 8 checks, as the wrappers counted them:
-    the six, K3-K5 by conv, the pool backward by channels and in all."""
+    the six, K3-K5 by conv, the strided pools' backward and the stride-1
+    pools' forward and backward, each by channels and in all."""
     return {"launches": read_launches(), "by_conv": read_conv_counts(),
             "pool_by_c": dict(convops.max_pool_bwd.launches_by_c),
-            "pool": convops.max_pool_bwd.launches}
+            "pool": convops.max_pool_bwd.launches,
+            "axis_by_c": dict(convops.max_pool_axis.launches_by_c),
+            "axis": convops.max_pool_axis.launches,
+            "axis_bwd_by_c": dict(convops.max_pool_axis_bwd.launches_by_c),
+            "axis_bwd": convops.max_pool_axis_bwd.launches}
 
 
 def counts_scaled(c, mul: int = 1, div: int = 1):
@@ -867,7 +1116,12 @@ def want_counts(steps: int, n_big: int) -> dict:
                          "tap_conv_dx": 2 * steps, "tap_conv_dw": 2 * steps},
             "by_conv": {fn.__name__: {conv: steps for conv in PCAPS_CO} for fn in TAP_COUNTERS},
             "pool_by_c": {c: steps for c in POOL_BWD_SHAPES},  # each strided pool once a step
-            "pool": steps * len(POOL_BWD_SHAPES)}
+            "pool": steps * len(POOL_BWD_SHAPES),
+            # each stride-1 stage once a step each way
+            "axis_by_c": {c: n * steps for c, n in STRIDE1_BY_C.items()},
+            "axis": steps * STRIDE1_LAUNCHES,
+            "axis_bwd_by_c": {c: n * steps for c, n in STRIDE1_BY_C.items()},
+            "axis_bwd": steps * STRIDE1_LAUNCHES}
 
 
 def pool_gib(pool) -> tuple[float, float]:
@@ -985,12 +1239,15 @@ def train_profile(tr: dict, one_step, one_eager) -> dict:
     per_step = counts_scaled(tr["eager"]["counted"], div=TRAIN_STEPS)
     rk, ek = prof["replay"]["kernel_counts"], prof["eager"]["kernel_counts"]
     missing = sorted(k for k in ek if not ek[k])
-    pool_fns = sum(rk.get("max_pool_bwd", {}).values())  # one CUDA function a strided pool
-    if rk != ek or missing or prof["eager"]["counters"] != per_step \
-            or pool_fns != len(POOL_BWD_SHAPES):
+    # one CUDA function a strided pool, and one a stride-1 stage each way
+    pool_fns = {k: sum(rk.get(k, {}).values())
+                for k in ("max_pool_bwd", "max_pool_axis", "max_pool_axis_bwd")}
+    want_fns = {"max_pool_bwd": len(POOL_BWD_SHAPES), "max_pool_axis": STRIDE1_LAUNCHES,
+                "max_pool_axis_bwd": STRIDE1_LAUNCHES}
+    if rk != ek or missing or prof["eager"]["counters"] != per_step or pool_fns != want_fns:
         raise AssertionError(f"train profile: a replay's kernels by name {rk}, an eager step's "
-                             f"{ek} (none missing: {missing}; the pool backward's functions "
-                             f"{pool_fns}, want {len(POOL_BWD_SHAPES)}); the eager step's "
+                             f"{ek} (none missing: {missing}; the pool kernels' functions "
+                             f"{pool_fns}, want {want_fns}); the eager step's "
                              f"counters {prof['eager']['counters']}, want {per_step}")
     g = tr["graphed"]
     g["replay_counts_from_trace"] = per_step
@@ -1870,7 +2127,8 @@ def eval_dp_phase(seed: int) -> dict:
 
 # phase 15: the serving artifact
 ARTIFACT_ATOL = 1e-3  # artifact vs the in-process model, sigmoid seg and scores
-ARTIFACT_OPS = {"picad.composite_convt.default": 1, "picad.tap_conv_fwd.default": 2}
+ARTIFACT_OPS = {"picad.composite_convt.default": 1, "picad.tap_conv_fwd.default": 2,
+                "picad.max_pool_axis.default": STRIDE1_LAUNCHES}
 PARITY_TIMEOUT_S = 300  # each run of the parity harness
 
 
@@ -1917,10 +2175,11 @@ def artifact_phase(seed: int, ckpt: str) -> dict:
         video = rng.uniform(0, 1, (64, 224, 224, 3)).astype(np.float32)
         torch.cuda.synchronize()
         reset_launches()
+        reset_pool_launches()
         seg, scores = art.predict_clips(clips)
         vid = art.predict_video(video)
         torch.cuda.synchronize()
-        res["launches"] = read_launches()
+        res["launches"], res["pool_launches"] = read_launches(), pool_launches()
         n_batches = 2 + 1  # 17 clips -> 14 + 3 (padded); 64 frames -> 8 clips (padded)
         want = {"composite_convt": n_batches, "composite_convt_bwd": 0, "bn_stats": 0,
                 "tap_conv_fwd": 2 * n_batches, "tap_conv_dx": 0, "tap_conv_dw": 0}
@@ -1939,10 +2198,13 @@ def artifact_phase(seed: int, ckpt: str) -> dict:
         warm = clips[:14].repeat(2, axis=0)
         res["clips_per_s_warm"] = {"artifact": _warm_clips_per_s(art, warm),
                                    "in_process": _warm_clips_per_s(live, warm)}
+        want_pools = serve_pool_want(n_batches)
         if not (res["ops"] == ARTIFACT_OPS and res["launches"] == want and same_classes
+                and res["pool_launches"] == want_pools
                 and finite and max(res["max_abs"].values()) <= ARTIFACT_ATOL):
             raise AssertionError(f"artifact: ops {res['ops']} (want {ARTIFACT_OPS}), launches "
-                                 f"{res['launches']} (want {want}), same classes "
+                                 f"{res['launches']} (want {want}), pool launches "
+                                 f"{res['pool_launches']} (want {want_pools}), same classes "
                                  f"{same_classes}, finite {finite}, {res['max_abs']}")
         del art, live, model
         torch.cuda.empty_cache()
@@ -2048,11 +2310,14 @@ def main() -> int:
                  POOL_BWD_SHAPES, (torch.bfloat16, torch.float32)))]
     pools += [check_pool_bwd(c, torch.bfloat16, args.seed, timed=False, ties=True)
               for c in POOL_BWD_SHAPES]
-    n_checked = read_launches() | {"max_pool_bwd": convops.max_pool_bwd.launches}
+    s1 = [check_pool_s1(name, dtype, args.seed + k, timed=(dtype == torch.bfloat16))
+          for k, (name, dtype) in enumerate(itertools.product(
+              i3d.INCEPTION_SPECS, (torch.bfloat16, torch.float32)))]
+    n_checked = read_launches() | {fn.__name__: fn.launches for fn in POOL_COUNTERS}
     stride1 = time_stride1_pools(args.seed)
     results.update(composite_convt=checks, composite_convt_bwd=bwd, bn_stats=stats,
                    bn_stats_stress=stress, tap_conv=taps, composite_plans=k12_plans,
-                   max_pool_bwd=pools, stride1_pools=stride1)
+                   max_pool_bwd=pools, max_pool_axis=s1, stride1_pools=stride1)
 
     def timing(c):
         return (f" kernel_ms {c['kernel_ms']:.4f} plain_ms {c['plain_ms']:.4f} library_ms "
@@ -2090,11 +2355,27 @@ def main() -> int:
         + " | max_pool_bwd (tol: f32 bit for bit, bf16 1 ulp; twice bit for bit) " + "; ".join(
             f"{c['pool']} {c['dtype']}{' ties' if c['ties'] else ''} err {c['max_abs_err']:.2e} "
             f"(bitwise plain {c['bitwise_plain']})" + timing(c) for c in pools)
-        + " | stride-1 pools fwd+bwd (plain torch, bf16) " + "; ".join(
+        + " | max_pool_axis / max_pool_axis_bwd (csrc/max_pool_s1.cu; tol: every stage bit for "
+        "bit the plain chain, relu, ties, negative x with inf/NaN in g; twice bit for bit; a "
+        "pool's stages summed, each timed in a CUDA graph over operands out of L2) "
+        + "; ".join(
+            f"{c['block']} {c['dtype']} {len(c['stages'])} checks"
+            + (f" fwd kernel_ms {c['fwd_ms']:.4f} plain_ms {c['fwd_plain_ms']:.4f} library_ms "
+               f"{c['fwd_library_ms']:.4f} copy_ms {c['fwd_copy_ms']:.4f} bound_us "
+               f"{1e3 * c['fwd_bound_ms']:.1f}; bwd kernel_ms {c['bwd_ms']:.4f} plain_ms "
+               f"{c['bwd_plain_ms']:.4f} library none copy_ms {c['bwd_copy_ms']:.4f} bound_us "
+               f"{1e3 * c['bwd_bound_ms']:.1f} ({c['bwd_bound_by']}); eager back to back fwd "
+               f"{c['fwd_eager_ms']:.4f} bwd {c['bwd_eager_ms']:.4f}" if "fwd_ms" in c else "")
+            for c in s1)
+        + " | stride-1 pools fwd+bwd (bf16, in a CUDA graph), kernels against the plain chain "
+        + "; ".join(
             f"{c['block']} {tuple(c['shape'])} {c['fwd_bwd_ms']:.4f} ms (fwd {c['fwd_ms']:.4f}) "
-            f"in {c['device_ops']:.0f} device ops" for c in stride1)
-        + f" (in all {sum(c['fwd_bwd_ms'] for c in stride1):.4f} ms, "
-        f"{sum(c['device_ops'] for c in stride1):.0f} ops)"
+            f"in {c['device_ops']:.0f} device ops, plain {c['plain_fwd_bwd_ms']:.4f} ms (fwd "
+            f"{c['plain_fwd_ms']:.4f}) in {c['plain_device_ops']:.0f}" for c in stride1)
+        + f" (in all {sum(c['fwd_bwd_ms'] for c in stride1):.4f} ms in "
+        f"{sum(c['device_ops'] for c in stride1):.0f} ops, plain "
+        f"{sum(c['plain_fwd_bwd_ms'] for c in stride1):.4f} ms in "
+        f"{sum(c['plain_device_ops'] for c in stride1):.0f})"
         + f" | launches in this phase {n_checked} | {smi}")
 
     # 4 the slice, card vs CPU, f32, TF32 off
@@ -2124,9 +2405,11 @@ def main() -> int:
     video = rng.uniform(0, 1, (64, 224, 224, 3)).astype(np.float32)
     serving = ServingModel.from_state_dict(seed=args.seed, clip_batch_size=14, device="cuda")
     reset_launches()
+    reset_pool_launches()
     seg, scores = serving.predict_clips(serve_clips)
     vid = serving.predict_video(video)
     serve_launches, serve_by_conv = read_launches(), read_conv_counts()
+    serve_pools = pool_launches()
     n_batches = 2 + 1  # 17 clips -> 14 + 3 (padded); 64 frames -> 8 clips (padded)
     ok_shapes = (seg.shape == (17, 8, 224, 224) and scores.shape == (17, 24)
                  and vid["segmentation"].shape == (64, 224, 224, 1)
@@ -2136,10 +2419,12 @@ def main() -> int:
             "tap_conv_fwd": 2 * n_batches, "tap_conv_dx": 0, "tap_conv_dw": 0}
     want_by_conv = {fn.__name__: {conv: n_batches if fn is tapconv.tap_conv_fwd else 0
                                   for conv in PCAPS_CO} for fn in TAP_COUNTERS}
-    if not (ok_shapes and finite and serve_launches == want and serve_by_conv == want_by_conv):
+    want_pools = serve_pool_want(n_batches)
+    if not (ok_shapes and finite and serve_launches == want and serve_by_conv == want_by_conv
+            and serve_pools == want_pools):
         raise AssertionError(f"serve: shapes ok {ok_shapes}, finite {finite}, "
                              f"launches {serve_launches} != {want} or by conv {serve_by_conv} "
-                             f"!= {want_by_conv}")
+                             f"!= {want_by_conv} or pools {serve_pools} != {want_pools}")
     # warm rate: whole predict_clips calls (host padding and copies included)
     reps, n = 3, 28
     warm = serve_clips[:14].repeat(2, axis=0)
@@ -2158,12 +2443,14 @@ def main() -> int:
                 "max_abs_scores": float(np.abs(scores - scores32).max()),
                 "argmax_agree": float((scores.argmax(1) == scores32.argmax(1)).mean())}
     results["serve_bf16"] = {"launches": serve_launches, "launches_by_conv": serve_by_conv,
+                             "pool_launches": serve_pools,
                              "padded_batches": n_batches,
                              "clips_per_s_warm": clips_per_s, "bf16_vs_f32": dev_bf16}
     phase(5, "serve", f"ServingModel bf16 clip batch 14: predict_clips 17 -> {seg.shape}, "
           f"predict_video 64 frames -> label {vid['pred_label']}; launches {serve_launches}, "
           f"K3 by conv {serve_by_conv['tap_conv_fwd']} "
-          f"(composite_convt = padded batches {n_batches}, tap_conv_fwd twice that); "
+          f"(composite_convt = padded batches {n_batches}, tap_conv_fwd twice that), pool "
+          f"kernels by channels {serve_pools} ({STRIDE1_LAUNCHES} max_pool_axis a batch); "
           f"warm {clips_per_s:.2f} clips/s ({smi}); bf16 vs f32: {dev_bf16}")
 
     # 6 where one warm 14-clip serving batch spends its time
@@ -2205,7 +2492,8 @@ def main() -> int:
           f"8x224^2, {TRAIN_STEPS} steps through the graphed step ({tr['captures']} capture, "
           f"{tr['replays']} replays): launches {tr['launches']}, K3-K5 by conv "
           f"{tr['by_conv']} (K6 inputs per step "
-          f"{tr['big_bn_per_step']}), max_pool_bwd by channels {tr['pool_by_c']} (the "
+          f"{tr['big_bn_per_step']}), max_pool_bwd by channels {tr['pool_by_c']}, "
+          f"max_pool_axis {tr['axis_by_c']} and max_pool_axis_bwd {tr['axis_bwd_by_c']} (the "
           f"{tr['counted_steps']} eager calls as the wrappers counted them, each replay as its "
           f"trace shows, phase 9); "
           f"loss {tr['losses'][0]['loss']:.4f} -> "
@@ -2230,7 +2518,8 @@ def main() -> int:
         f"trace, the same as in the eager step's: " + ", ".join(
             f"{k} {sum(v.values()):.0f} in {len(v)} names" for k, v in tp["kernel_counts"].items())
         + "; replay kernels " + ", ".join(f"{k} {v:.3f} ms" for k, v in tp["kernel_ms"].items())
-        + f", max_pool_bwd {tp['counted_ms']['max_pool_bwd']:.3f} ms"
+        + "".join(f", {k} {tp['counted_ms'][k]:.3f} ms"
+                  for k in ("max_pool_bwd", "max_pool_axis", "max_pool_axis_bwd"))
         + "; top: " + ", ".join(f"{k['name'][:40]} {k['device_ms']:.2f}" for k in tp["top"][:6])))
 
     del one_step, one_eager  # phase 8's train states
@@ -2407,6 +2696,17 @@ def main() -> int:
         for ch in POOL_BWD_SHAPES
         for c in pools if "kernel_ms" in c and c["dtype"] == "bfloat16"
         and c["shape"] == list(POOL_BWD_SHAPES[ch][0])
+    ] + [  # the stride-1 pools' forward and backward at each pool shape, bf16: the
+        # pool's stages summed, with the launches the wrappers counted at its channels
+        {"name": f"{fn}/{'Mixed_4c-4e' if c['block'] == 'Mixed_4c' else c['block']}",
+         "route": "cuda", "source": "picad_tpu_torch/csrc/max_pool_s1.cu",
+         "replaces": "picad_tpu/ops/convops.py:208-268 (_max_pool_axis, jax.custom_vjp)",
+         "launches": tr[counts][c["shape"][1]], "max_abs_err": c[f"{d}_err"],
+         "ms": c[f"{d}_ms"], "plain_ms": c[f"{d}_plain_ms"], "bound_ms": c[f"{d}_bound_ms"],
+         "bound_by": c[f"{d}_bound_by"], "library_ms": c.get(f"{d}_library_ms")}
+        for fn, d, counts in (("max_pool_axis", "fwd", "axis_by_c"),
+                              ("max_pool_axis_bwd", "bwd", "axis_bwd_by_c"))
+        for c in s1 if "fwd_ms" in c and c["block"] not in ("Mixed_4d", "Mixed_4e")
     ]}
     results["kernels"] = kernels["kernels"]
     os.makedirs("chiprun_out", exist_ok=True)

@@ -14,7 +14,14 @@ are thin wrappers over torch's convolutions that add what torch lacks:
 - ConvTransposeNd with output_padding is torch's own definition.
 - Stride-1 max pools are separable, with the JAX package's tied-max
   backward (convops.py:148-268): every tied maximum of a window gets
-  the window's gradient.  Strided pools keep the joint pool, whose
+  the window's gradient.  Each stage is `max_pool_axis` forward (the
+  custom op `picad::max_pool_axis`, which torch.export keeps) and
+  `max_pool_axis_bwd` backward, on the saved x and y: the hand-written
+  kernels of csrc/max_pool_s1.cu on a CUDA tensor, one launch a stage,
+  bit for bit their plain versions (`max_pool_axis_plain`,
+  `max_pool_axis_bwd_plain`), which run on a CPU tensor.  Both count
+  their launches as `max_pool_bwd` does.
+- Strided pools keep the joint pool, whose
   backward gives each window's gradient to its first maximum in scan
   order, as XLA's select-and-scatter does (convops.py:198).  That
   backward is `max_pool_bwd`, from the unpadded x (the pool saves x and
@@ -246,32 +253,155 @@ def _shift(t: torch.Tensor, dim: int, shift: int, fill: float) -> torch.Tensor:
     return torch.cat([t.narrow(dim, -shift, size + shift), pad], dim=dim)
 
 
-class _MaxPoolAxis(torch.autograd.Function):
-    """Stride-1 zero-padded max pool along one dim, with the JAX
-    package's backward (convops.py:248-265):
+def max_pool_axis_plain(x: torch.Tensor, dim: int, k: int) -> torch.Tensor:
+    """Plain torch version of the stride-1 forward: x zero-padded along
+    dim by same_pads(size, k, 1), then the max of every k consecutive."""
+    lo, hi = same_pads(x.shape[dim], k, 1)
+    pads = [(0, 0)] * (x.ndim - 2)
+    pads[dim - 2] = (lo, hi)
+    return _pad_spatial(x, pads).unfold(dim, k, 1).amax(dim=-1)
+
+
+def max_pool_axis_bwd_plain(x, y, g, dim: int, k: int) -> torch.Tensor:
+    """Plain torch version of the stride-1 backward (the JAX package's
+    convops.py:248-265):
 
         dx[i] = sum over windows j containing i of 1[x[i] == y[j]] g[j],
 
     k shifted compare-and-add passes in f32, cast to x's type."""
+    lo, _ = same_pads(x.shape[dim], k, 1)
+    gf = g.float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for t in range(k):
+        s = t - lo  # i = j + t - lo  =>  window j = i - (t - lo)
+        ys = _shift(y, dim, s, float("-inf"))
+        acc = acc + (x == ys).float() * _shift(gf, dim, s, 0.0)
+    return acc.to(x.dtype)
+
+
+def _axis_geometry(shape, dim: int, k: int, name: str) -> tuple[int, int, int, int]:
+    """(outer, L, inner, lo) of a stride-1 stage along dim of a (N, C, *sp)
+    tensor, raising on what no stage is."""
+    if not (3 <= len(shape) <= 5 and 2 <= dim < len(shape) and k >= 1):
+        raise ValueError(f"{name}: no stride-1 pool of window {k} along dim {dim} of a "
+                         f"tensor {tuple(shape)} (N, C, 1 to 3 spatial dims)")
+    return (math.prod(shape[:dim]), shape[dim], math.prod(shape[dim + 1:]),
+            same_pads(shape[dim], k, 1)[0])
+
+
+def _check_axis_cuda(name: str, *ts: torch.Tensor) -> None:
+    if ts[0].device.type != "cuda" or any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in ts]}; the kernel "
+                         "wants all of them on one CUDA device")
+    if ts[0].dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != ts[0].dtype
+                                                                 for t in ts):
+        raise TypeError(f"{name} kernel takes f32 or bf16 tensors of one type, not "
+                        f"{[t.dtype for t in ts]}")
+    if any(t.shape != ts[0].shape for t in ts) or ts[0].numel() > 2**31 - 1:
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ts]} differ or exceed "
+                         "int32 elements")
+
+
+def _axis_fns():
+    from picad_tpu_torch.ops import _build
+
+    lib = _build.load("max_pool_s1")
+    fwd, bwd = lib.picad_max_pool_axis_fwd, lib.picad_max_pool_axis_bwd
+    fwd.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _count_axis(fn, c: int) -> None:
+    """One launch of fn's kernel, counted in all and for the channels."""
+    fn.launches += 1
+    fn.launches_by_c[c] = fn.launches_by_c.get(c, 0) + 1
+
+
+def max_pool_axis(x: torch.Tensor, dim: int, k: int) -> torch.Tensor:
+    """One stride-1 stage along dim (`max_pool_axis_plain`'s function),
+    through the custom op `picad::max_pool_axis`.
+
+    CPU tensors: the plain version.  CUDA tensors: csrc/max_pool_s1.cu,
+    one launch, or raise."""
+    _axis_geometry(x.shape, dim, k, "max_pool_axis")
+    return max_pool_axis_op(x, dim, k)
+
+
+@torch.library.custom_op("picad::max_pool_axis", mutates_args=(), device_types="cpu")
+def max_pool_axis_op(x: torch.Tensor, dim: int, k: int) -> torch.Tensor:
+    """The stage as a named op, so that torch.export keeps the kernel in a
+    serving artifact: the plain version on the CPU (below: the kernel on
+    the card, the output's shape for a trace).  No flop formula: a pool
+    does no multiply-adds (bench/flops.py counts none)."""
+    return max_pool_axis_plain(x, dim, k).contiguous()
+
+
+@max_pool_axis_op.register_fake
+def _(x, dim, k):
+    return x.new_empty(x.shape)
+
+
+@max_pool_axis_op.register_kernel("cuda")
+def _max_pool_axis_cuda(x: torch.Tensor, dim: int, k: int) -> torch.Tensor:
+    outer, size, inner, lo = _axis_geometry(x.shape, dim, k, "max_pool_axis")
+    _check_axis_cuda("max_pool_axis", x)
+    x = x.contiguous()
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        err = _axis_fns()[0](x.data_ptr(), y.data_ptr(), outer, size, inner, k, lo,
+                             int(x.dtype == torch.bfloat16),
+                             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"max_pool_axis kernel launch failed: CUDA error {err}")
+    _count_axis(max_pool_axis, x.shape[1])
+    return y
+
+
+def max_pool_axis_bwd(x, y, g, dim: int, k: int) -> torch.Tensor:
+    """The stride-1 stage's backward (`max_pool_axis_bwd_plain`'s
+    function), from the stage's x and y.
+
+    CPU tensors: the plain version.  CUDA tensors: csrc/max_pool_s1.cu,
+    one launch, or raise."""
+    outer, size, inner, lo = _axis_geometry(x.shape, dim, k, "max_pool_axis_bwd")
+    if x.device.type == "cpu" and y.device.type == "cpu" and g.device.type == "cpu":
+        return max_pool_axis_bwd_plain(x, y, g, dim, k)
+    _check_axis_cuda("max_pool_axis_bwd", x, y, g)
+    x, y, g = x.contiguous(), y.contiguous(), g.contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return dx
+    with torch.cuda.device(x.device):
+        err = _axis_fns()[1](x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), outer,
+                             size, inner, k, lo, int(x.dtype == torch.bfloat16),
+                             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"max_pool_axis_bwd kernel launch failed: CUDA error {err}")
+    _count_axis(max_pool_axis_bwd, x.shape[1])
+    return dx
+
+
+for _fn in (max_pool_axis, max_pool_axis_bwd):
+    _fn.launches, _fn.launches_by_c = 0, {}
+
+
+class _MaxPoolAxis(torch.autograd.Function):
+    """Stride-1 zero-padded max pool along one dim, with the JAX
+    package's all-ties backward (convops.py:248-265): forward
+    `max_pool_axis`, backward `max_pool_axis_bwd` on the saved x and y."""
 
     @staticmethod
     def forward(ctx, x, dim, k):
-        lo, hi = same_pads(x.shape[dim], k, 1)
-        pads = [(0, 0)] * (x.ndim - 2)
-        pads[dim - 2] = (lo, hi)
-        y = _pad_spatial(x, pads).unfold(dim, k, 1).amax(dim=-1)
+        y = max_pool_axis(x, dim, k)
         ctx.save_for_backward(x, y)
-        ctx.dim, ctx.k, ctx.lo = dim, k, lo
+        ctx.dim, ctx.k = dim, k
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        dim, lo = ctx.dim, ctx.lo
-        gf = g.float()
-        acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        for t in range(ctx.k):
-            s = t - lo  # i = j + t - lo  =>  window j = i - (t - lo)
-            ys = _shift(y, dim, s, float("-inf"))
-            acc = acc + (x == ys).float() * _shift(gf, dim, s, 0.0)
-        return acc.to(x.dtype), None, None
+        return max_pool_axis_bwd(x, y, g, ctx.dim, ctx.k), None, None

@@ -10,13 +10,15 @@ machinery or the training stack.
 
 One deliberate divergence from the JAX package, whose artifacts trace
 the pure-XLA chain and bake in no kernel (picad_tpu/serve/export.py:
-14-19): here the two kernels of the eval forward stay in the artifact as
-named custom ops, `picad::composite_convt` (K1, the fused decoder head)
-and `picad::tap_conv_fwd` (K3, PrimaryCaps' two 9x9 convs).  Their plain
-versions cost 5.8 and 14.8 ms a serving batch on the card against the
-kernels' 0.17 and 0.85 ms (PERF.md).  So loading an artifact needs the
-two op modules (`picad_tpu_torch.ops`, imported by `load_artifact`),
-which run the kernels on the card and the plain versions on the CPU.
+14-19): here the kernels of the eval forward stay in the artifact as
+named custom ops, `picad::composite_convt` (K1, the fused decoder head),
+`picad::tap_conv_fwd` (K3, PrimaryCaps' two 9x9 convs) and
+`picad::max_pool_axis` (a stage of the Inception blocks' stride-1 max
+pools, csrc/max_pool_s1.cu; 16 a forward).  K1's and K3's plain versions
+cost 5.8 and 14.8 ms a serving batch on the card against the kernels'
+0.17 and 0.85 ms (PERF.md).  So loading an artifact needs the three op
+modules (`picad_tpu_torch.ops`, imported by `load_artifact`), which run
+the kernels on the card and the plain versions on the CPU.
 
 An artifact is traced on one device type and runs on it only: the graph
 holds constants (index tensors, zeros) made on that device.  Loading it
@@ -102,6 +104,7 @@ def load_artifact(artifact_dir: str, device=None):
     its `program`.  Raises on another format version, and on a device
     type other than the one the artifact was traced on."""
     # the custom ops' registrations, which the saved graph names
+    import picad_tpu_torch.ops.convops  # noqa: F401
     import picad_tpu_torch.ops.fused_head_kernel  # noqa: F401
     import picad_tpu_torch.ops.tapconv  # noqa: F401
     from picad_tpu_torch.eval.runner import pad_to_batch

@@ -155,11 +155,15 @@ KERNEL_FRAGMENTS = {"composite_convt": ("composite_convt_kernel", "composite_con
                     "tap_conv_dw": ("tap_conv_dw_",)}
 COPY_PREFIXES = {"htod": "Memcpy HtoD", "dtoh": "Memcpy DtoH"}
 # every kernel wrapper that counts its launches, by its CUDA functions'
-# names: KERNEL_FRAGMENTS' six and the strided pools' backward (one
-# function, a name no torch kernel contains)
+# names: KERNEL_FRAGMENTS' six, the strided pools' backward (one
+# function, a name no torch kernel contains) and the stride-1 pools'
+# forward and backward (csrc/max_pool_s1.cu: names no torch kernel, and
+# neither the other, contains)
 COUNTED_KERNELS = {k: re.compile("|".join(map(re.escape, frags)))
                    for k, frags in KERNEL_FRAGMENTS.items()} | {
-    "max_pool_bwd": re.compile(re.escape("picad_pool_bwd"))}
+    "max_pool_bwd": re.compile(re.escape("picad_pool_bwd")),
+    "max_pool_axis": re.compile(re.escape("picad_axis_pool_fwd")),
+    "max_pool_axis_bwd": re.compile(re.escape("picad_axis_pool_bwd"))}
 
 
 def launch_counters() -> tuple:
@@ -175,14 +179,21 @@ def launch_counters() -> tuple:
             tapconv.tap_conv_dx, tapconv.tap_conv_dw)
 
 
+def pool_counters() -> tuple:
+    """The pool kernels' wrappers, counted apart from launch_counters()'
+    six (the bench's kernel table has no row for them): the strided
+    pools' backward, the stride-1 pools' forward and backward."""
+    from picad_tpu_torch.ops import convops
+
+    return (convops.max_pool_bwd, convops.max_pool_axis, convops.max_pool_axis_bwd)
+
+
 def launch_state() -> dict:
     """Every count of every wrapper that counts its launches (the six of
-    launch_counters() and the strided pools' backward): {(wrapper,
-    attribute): the int `launches`, or a copy of a `launches_by_*` dict}."""
-    from picad_tpu_torch.ops.convops import max_pool_bwd
-
+    launch_counters() and pool_counters()): {(wrapper, attribute): the int
+    `launches`, or a copy of a `launches_by_*` dict}."""
     return {(fn, a): dict(v) if isinstance(v, dict) else v
-            for fn in launch_counters() + (max_pool_bwd,)
+            for fn in launch_counters() + pool_counters()
             for a, v in vars(fn).items() if a.startswith("launches")}
 
 

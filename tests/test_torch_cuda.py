@@ -899,6 +899,95 @@ def test_strided_pools_backward_on_card_is_deterministic(card):
     torch.testing.assert_close(grads[0], grads[2], rtol=0, atol=0)
 
 
+def _bits(t):
+    return t.contiguous().view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[t.dtype])
+
+
+def _s1_input(shape, kind, gen, dtype, device):
+    """post-ReLU x, rounded to integers (ties), or negative (the pads win)."""
+    x = torch.randn(shape, generator=gen, device=device)
+    x = -(x.abs() + 0.25) if kind == "negative" else torch.relu(x)
+    return (x.round() if kind == "ties" else x).to(dtype)
+
+
+def _s1_grad(shape, gen, dtype, device):
+    """g with planted inf, -inf and NaN."""
+    g = torch.randn(shape, generator=gen, device=device)
+    flat = g.view(-1)
+    flat[::17] = float("inf")
+    flat[5::19] = float("-inf")
+    flat[9::23] = float("nan")
+    return g.to(dtype)
+
+
+@pytest.mark.parametrize("kind", ["relu", "ties", "negative"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,dim,k", [
+    ((2, 3, 5, 7, 9), 2, 3), ((2, 3, 5, 7, 9), 3, 3), ((2, 3, 5, 7, 9), 4, 3),  # ragged rows
+    ((2, 3, 4, 6, 10), 4, 2), ((2, 3, 4, 6, 10), 3, 5),  # other windows: the run-time path
+    ((1, 5, 1, 13), 3, 3),  # a 2-d pool (rank 4)
+    ((16, 192, 2, 28, 28), 2, 3), ((16, 192, 2, 28, 28), 3, 3),  # Mixed_3b's three stages
+    ((16, 192, 2, 28, 28), 4, 3),
+    ((16, 528, 1, 28, 28), 3, 3), ((16, 528, 1, 28, 28), 4, 3),  # Mixed_4f's two
+])
+def test_max_pool_axis_kernels_match_plain(card, shape, dim, k, dtype, kind):
+    """csrc/max_pool_s1.cu's forward and backward against their plain
+    versions, bit for bit (compared on the bits: a -0.0 or a NaN's payload
+    shows), with inf and NaN in g; twice on one input bit for bit; one
+    launch a call each."""
+    from picad_tpu_torch.ops import convops
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    x = _s1_input(shape, kind, gen, dtype, card)
+    g = _s1_grad(shape, gen, dtype, card)
+    n_fwd, n_bwd = convops.max_pool_axis.launches, convops.max_pool_axis_bwd.launches
+    y, y2 = convops.max_pool_axis(x, dim, k), convops.max_pool_axis(x, dim, k)
+    dx, dx2 = convops.max_pool_axis_bwd(x, y, g, dim, k), convops.max_pool_axis_bwd(x, y, g, dim, k)
+    torch.cuda.synchronize()
+    assert (convops.max_pool_axis.launches - n_fwd, convops.max_pool_axis_bwd.launches - n_bwd) \
+        == (2, 2)
+    y_ref = convops.max_pool_axis_plain(x, dim, k)
+    dx_ref = convops.max_pool_axis_bwd_plain(x, y_ref, g, dim, k)
+    assert y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
+    assert torch.equal(_bits(y), _bits(y_ref)) and torch.equal(_bits(y), _bits(y2))
+    assert torch.equal(_bits(dx), _bits(dx_ref)) and torch.equal(_bits(dx), _bits(dx2))
+    assert bool(dx_ref.isnan().any())  # the planted inf and NaN reached dx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_pool_axis_kernels_take_any_layout(card, dtype):
+    """A channels_last_3d input and a non-contiguous view give the result
+    of the contiguous input, through autograd, bit for bit."""
+    from picad_tpu_torch.ops import convops
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = _s1_input((2, 6, 2, 9, 10), "ties", gen, dtype, card)
+    g = torch.randn(x.shape, generator=gen, device=card).to(dtype)
+    outs = []
+    for t in (x, x.to(memory_format=torch.channels_last_3d),
+              torch.cat([x, x], dim=4)[..., :10]):
+        t = t.detach().requires_grad_(True)
+        y = convops.max_pool_same_zero_pad(t, (3, 3, 3), (1, 1, 1))
+        (gx,) = torch.autograd.grad(y, t, g)
+        outs.append((_bits(y), _bits(gx)))
+    for y, gx in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(gx, outs[0][1])
+
+
+def test_max_pool_axis_kernels_refuse_what_they_cannot_take(card):
+    from picad_tpu_torch.ops import convops
+
+    x = torch.zeros((1, 2, 3, 4, 5), device=card)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        convops.max_pool_axis(x.half(), 4, 3)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        convops.max_pool_axis_bwd(x, x, x.bfloat16(), 4, 3)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        convops.max_pool_axis_bwd(x, x, x.cpu(), 4, 3)
+    with pytest.raises(ValueError, match="no stride-1 pool"):
+        convops.max_pool_axis(x, 1, 3)
+
+
 def test_serving_artifact_on_card(card, tmp_path):
     """The bf16 CapsNet exported on the card at clip batch 2, 96^2: the
     graph keeps K1 and K3 as custom ops, the loaded artifact launches K1
@@ -996,10 +1085,10 @@ def test_crossing_thresh_epoch_captures_a_second_graph(card):
 
 def test_a_replay_counts_what_an_eager_step_launches(card):
     """A replay launches, by its trace, the same instances of K1-K6's and
-    the pool backward's CUDA functions as an eager step, and the eager
+    the pool kernels' CUDA functions as an eager step, and the eager
     step's trace shows every wrapper that counted a launch and no other
     (at this size no BN input reaches K6); and each launch counter, the
-    six of the bench's kernel table and the pool backward's by channels,
+    six of the bench's kernel table and the pool kernels' by channels,
     reads per replay what the wrappers count for one eager step."""
     from picad_tpu_torch.config import LossConfig
     from picad_tpu_torch.ops import convops
@@ -1024,6 +1113,9 @@ def test_a_replay_counts_what_an_eager_step_launches(card):
 
     one = counted(eager)
     assert one[(convops.max_pool_bwd, "launches")] == 3 and len(one) > 6, one
+    # the seven stride-1 pools: 16 stages, one forward and one backward launch each
+    assert one[(convops.max_pool_axis, "launches")] == 16, one
+    assert one[(convops.max_pool_axis_bwd, "launches")] == 16, one
     for _ in range(graph.WARMUP):
         assert counted(graphed) == one  # the warm-ups: eager
     assert counted(graphed) == one and graphed.captures == 1  # the capture, then its replay
@@ -1038,8 +1130,11 @@ def test_a_replay_counts_what_an_eager_step_launches(card):
     counted_by = {fn.__name__ for fn, a in one if a == "launches"}
     traced = {k for k, names in in_eager.items() if names}
     assert traced == counted_by and in_replay == in_eager, (in_replay, in_eager, counted_by)
-    # the pool backward: one CUDA function a strided pool, three a step
+    # the pool backward: one CUDA function a strided pool, three a step; the
+    # stride-1 pools' kernels one a stage each way, 16 a step
     assert sum(in_replay["max_pool_bwd"].values()) == 3, in_replay
+    assert sum(in_replay["max_pool_axis"].values()) == 16, in_replay
+    assert sum(in_replay["max_pool_axis_bwd"].values()) == 16, in_replay
 
 
 def test_the_optimizer_is_fused_on_the_card_and_plain_in_a_process_group(card):

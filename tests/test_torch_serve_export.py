@@ -1,6 +1,7 @@
 """The port's serving artifact (picad_tpu_torch/serve/export.py), CPU f32:
-the cases of tests/test_serve.py on the CapsNet itself, the two custom
-ops that keep K1 and K3 in the graph, the export CLI, and the port's
+the cases of tests/test_serve.py on the CapsNet itself, the custom ops
+that keep K1, K3 and the stride-1 pools' forward in the graph, the
+export CLI, and the port's
 artifact against the JAX package's on the same weights.
 
 One artifact of the pinned fixture's CapsNet at 80^2, clip batch 2, is
@@ -40,7 +41,8 @@ from tests.test_torch_model import (  # noqa: F401
 
 H = 80
 CB = 2
-OPS = {"picad.composite_convt.default": 1, "picad.tap_conv_fwd.default": 2}
+OPS = {"picad.composite_convt.default": 1, "picad.tap_conv_fwd.default": 2,
+       "picad.max_pool_axis.default": 16}  # 7 stride-1 pools: 2 x 3 + 5 x 2 stages
 WELL_EPS = 1e-4  # EM routing eps at which cost_std is well conditioned
 
 
