@@ -46,7 +46,11 @@ failure exits non-zero (no phase is caught and passed over):
             each kernel must move and the byte bound; then each pool's
             forward + backward and its device operations, through the
             kernels and through the plain chain.  Kernel, plain
-            and library times and the bound at the train shapes (K3-K5:
+            and library times and the bound at the train shapes, each
+            time in a CUDA graph over operand sets rotated out of L2
+            (utils/profiling.graph_ms) and back to back on one warm set
+            (cuda_ms, as the table was timed before; a custom op's host
+            dispatch counts there) (K3-K5:
             cuDNN in NCHW and channels_last, the faster as library_ms;
             each tap kernel's useful TFLOP/s and its work ratio, the
             multiply-adds its tiles compute over the useful ones, from
@@ -68,7 +72,9 @@ failure exits non-zero (no phase is caught and passed over):
             of the wall, each port kernel's time and the top device
             entries (all of them in chiprun_out/chip_smoke.json).
   7 train-slice  one f32 train step (bn_groups 2, so both views fold
-            into one forward; bv, dropout 0) at 96^2, batch 2, TF32 off,
+            into one forward; dropout 0) at 96^2, batch 2, TF32 off, of
+            the bench's loss configuration (bv) and again of the gradient
+            mask (gv, GV_CFG), each in its own band,
             same seeded weights
             and batch, with every BN on K6: the card (K1-K6) against
             the CPU (their plain versions), inside a noise band the CPU
@@ -223,9 +229,28 @@ failure exits non-zero (no phase is caught and passed over):
             of seeded weights and 2 synthetic videos, first alone and then
             with --reference_line set to the line it printed: PASS.
 
-The timing and profiling helpers (cuda_ms, profile_call, the launch
-counters, nvidia_smi_line) are picad_tpu_torch/utils/profiling.py's, which
-the bench shares.
+ 16 configs the JAX package's other train configurations at full width
+            (CONFIGS: gv, bv+gv, remat, f32, packed; bs 8, 224^2, bf16
+            unless f32, epoch 12) beside the bench's (bv), with torch's
+            TF32 defaults: each through train_main_path as phase 8, the
+            ramp changing between steps (CONFIG_RAMPS): TRAIN_STEPS steps
+            graphed (one capture, the replays) bit for bit the same steps
+            eager, the launches of every step (the eager steps' as the
+            wrappers counted them, a replay's what its capture counted;
+            with remat K6 and max_pool_axis twice a step: the backward
+            runs the encoder's forward again), finite losses, every
+            parameter moved, the warm replayed step, clips/s, peak
+            allocated memory (and what earlier phases held), peak
+            reserved, reserved while replaying and the graph's pool; the remat
+            run against the bv run from the same state: bit for bit, or
+            within REMAT_L2 with the first tensor that differs; then
+            train_ucf101.main for one epoch as phase 13 runs it, --gv in
+            place of --bv.
+
+The timing and profiling helpers (cuda_ms, graph_ms, profile_call, the
+launch counters, nvidia_smi_line) are picad_tpu_torch/utils/profiling.py's,
+and the state snapshots and the graph pool's size bench/check.py's and
+bench/train.py's, which the bench shares.
 
 Then three lines: nvidia-smi's name and power limit, the kernel table as
 one JSON object, and last {"ok": true, "device": {...}}.  The full
@@ -238,6 +263,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import hashlib
 import itertools
 import json
@@ -255,6 +281,7 @@ import torch
 import torch.nn.functional as F
 
 from picad_tpu_torch.bench import Lengths, load_config, run_cell
+from picad_tpu_torch.bench.check import snapshot_diff, state_snapshot
 from picad_tpu_torch.bench.trace import (
     KERNELS,
     SERVE_LAUNCHES,
@@ -264,6 +291,7 @@ from picad_tpu_torch.bench.trace import (
 from picad_tpu_torch.bench.train import (
     cache_pipeline,
     epochs_forever,
+    pool_gib,
     stream_pipeline,
     synthetic_batch,
 )
@@ -299,10 +327,13 @@ from picad_tpu_torch.parallel import mesh
 from picad_tpu_torch.serve import ServingModel, load_artifact, save_artifact
 from picad_tpu_torch.train.loop import Trainer
 from picad_tpu_torch.train import graph
+from picad_tpu_torch.train import step as train_step_module
 from picad_tpu_torch.train.state import create_train_state
 from picad_tpu_torch.train.step import make_train_step
 from picad_tpu_torch.utils.profiling import (
+    cold_copies,
     cuda_ms,
+    graph_ms,
     nvidia_smi_line,
     profile_call,
     read_launches,
@@ -334,6 +365,21 @@ BF16_ULP = 2.0**-7  # a bf16 output may round to the neighbour of the plain one
 TRAIN_CFG = dict(bv=True, n_frames=5, wt_cons=0.1, thresh_epoch=11)  # bench.py:164
 TRAIN_EPOCH, TRAIN_RAMP = 12.0, 0.5  # bench.py:182-183
 TRAIN_BS, TRAIN_STEPS = 8, 6
+# The JAX package's other train configurations (phase 16): the reference's
+# gradient-mask run ("replace --bv --n_frames 5 with --gv", README.md) with
+# the flags as the CLIs map --gv (no confidence clamps, gv_wt 0.5), that
+# mask mixed with bv (bv_wt, gv_wt 0.5), and the bench's TRAIN_CFG with the
+# encoder rematerialised, in f32 and through the packed uint8 prep; "bv"
+# is TRAIN_CFG itself, run beside them under the same settings.
+GV_CFG = dict(gv=True, wt_cons=0.1, thresh_epoch=11)
+BV_GV_CFG = dict(TRAIN_CFG, gv=True, bv_wt=0.5, gv_wt=0.5)
+CONFIGS = {"bv": (TRAIN_CFG, {}), "gv": (GV_CFG, {}), "bv+gv": (BV_GV_CFG, {}),
+           "remat": (TRAIN_CFG, {"remat": True}), "f32": (TRAIN_CFG, {"dtype": torch.float32}),
+           "packed": (TRAIN_CFG, {"packed": True})}
+CONFIG_RAMPS = (0.5, 0.2, 0.9, 0.5, 0.3, 0.7)  # a replay reads each from the ramp tensor
+# the rematerialised encoder's step against the stored one's, relative L2 of
+# a tensor that is not bit for bit (tests/test_torch_parallel.py's bound)
+REMAT_L2 = 1e-6
 # Phase 7 holds the card to the CPU with a noise band the CPU measures on
 # itself: N_DRAWS more CPU steps, each after every weight moved by a
 # seeded N(0, NOISE_MOVE) relative amount.  EM routing's cost_std quirk
@@ -403,6 +449,21 @@ def composite_bound_ms(shape, dtype) -> tuple[float, str]:
     return bound(nbytes, 2 * B * T * H * W * C * 125, dtype)
 
 
+def time_calls(fns: dict, operands: tuple) -> dict:
+    """Each call of `fns` (name -> (fn, iters)) on `operands` timed two
+    ways: `{name}_ms` in a CUDA graph over operand sets rotated out of L2
+    (graph_ms; the device's time, as in the captured train step), and
+    `{name}_eager_ms` over `iters` back-to-back calls on `operands`
+    (cuda_ms, the L2 warm; a custom op's host dispatch counts there)."""
+    nbytes = sum(t.numel() * t.element_size() for t in operands)
+    sets = [tuple(t.clone() for t in operands) for _ in range(cold_copies(nbytes))]
+    res = {}
+    for name, (fn, iters) in fns.items():
+        res[f"{name}_ms"] = graph_ms([functools.partial(fn, *ops) for ops in sets])
+        res[f"{name}_eager_ms"] = cuda_ms(functools.partial(fn, *operands), iters)
+    return res
+
+
 def check_composite(shape, dtype, seed, timed: bool) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     B, _, _, _, C = shape
@@ -421,9 +482,9 @@ def check_composite(shape, dtype, seed, timed: bool) -> dict:
     res = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": err, "max_abs_plain": scale}
     if timed:
-        res["kernel_ms"] = cuda_ms(lambda: composite_convt(x, Kc), 20)
-        res["plain_ms"] = cuda_ms(lambda: composite_convt_plain(x, Kc), 5)
-        res["library_ms"] = cuda_ms(lambda: composite_convt_library(x, Kc), 3)
+        res.update(time_calls({"kernel": (composite_convt, 20),
+                               "plain": (composite_convt_plain, 5),
+                               "library": (composite_convt_library, 3)}, (x, Kc)))
         res["bound_ms"], res["bound_by"] = composite_bound_ms(shape, dtype)
     return res
 
@@ -475,9 +536,9 @@ def check_composite_bwd(shape, dtype, seed, timed: bool) -> dict:
            "max_abs_dx": dx_ref.float().abs().max().item(),
            "max_abs_dKc": dKc_ref.abs().max().item()}
     if timed:
-        res["kernel_ms"] = cuda_ms(lambda: composite_convt_bwd(g, x, Kc), 10)
-        res["plain_ms"] = cuda_ms(lambda: composite_convt_bwd_plain(g, x, Kc), 3)
-        res["library_ms"] = cuda_ms(lambda: composite_convt_bwd_library(g, x, Kc), 3)
+        res.update(time_calls({"kernel": (composite_convt_bwd, 10),
+                               "plain": (composite_convt_bwd_plain, 3),
+                               "library": (composite_convt_bwd_library, 3)}, (g, x, Kc)))
         item = torch.finfo(dtype).bits // 8
         n_x, n_g = B * T * H * W * C, B * 8 * T * H * W
         # g (in x's type), x and Kc read; dx (x's type) and dKc (f32) written
@@ -497,9 +558,9 @@ def check_bn_stats(shape, dtype, seed, timed: bool, groups: int = 2) -> dict:
            "mean_err": max_err(mean, m_ref, "bn_stats mean"),
            "var_err": max_err(var, v_ref, "bn_stats var")}
     if timed:
-        res["kernel_ms"] = cuda_ms(lambda: bn_stats(x, groups), 20)
-        res["plain_ms"] = cuda_ms(lambda: bn_stats_plain(x, groups), 5)
-        res["library_ms"] = cuda_ms(lambda: bn_stats_library(x, groups), 5)
+        res.update(time_calls({"kernel": (lambda t: bn_stats(t, groups), 20),
+                               "plain": (lambda t: bn_stats_plain(t, groups), 5),
+                               "library": (lambda t: bn_stats_library(t, groups), 5)}, (x,)))
         # x read once, (mean, var) written; sub, add and a multiply-add per element
         nbytes = x.numel() * x.element_size() + 2 * groups * shape[1] * 4
         res["bound_ms"], res["bound_by"] = bound(nbytes, 4 * x.numel(), torch.float32)
@@ -574,16 +635,19 @@ def check_pool_bwd(c: int, dtype, seed: int, timed: bool, ties: bool = False) ->
     if not (res["bitwise_twice"] and bool((d <= tol).all())):
         raise AssertionError(f"max_pool_bwd: {res}")
     if timed:
-        res["kernel_ms"] = cuda_ms(lambda: convops.max_pool_bwd(*args), 20)
-        res["plain_ms"] = cuda_ms(lambda: convops.max_pool_bwd_plain(*args), 3)
+        lo = args[-1]
+        res.update(time_calls(
+            {"kernel": (lambda *t: convops.max_pool_bwd(*t, k, s, lo), 20),
+             "plain": (lambda *t: convops.max_pool_bwd_plain(*t, k, s, lo), 3)}, (x, y, g)))
         _, idx = torch.ops.aten.max_pool3d_with_indices(xp, list(k), list(s))
-        res["library_ms"] = cuda_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
-            g, xp, list(k), list(s), [0] * 3, [1] * 3, False, idx), 20)
+        res.update(time_calls({"library": (
+            lambda gg, xx, ii: torch.ops.aten.max_pool3d_with_indices_backward(
+                gg, xx, list(k), list(s), [0] * 3, [1] * 3, False, ii), 20)}, (g, xp, idx)))
         # the copy floor: one flat copy_ of x + y elements moves as many bytes
         # as the kernel must (x, y and g read, dx written)
         src = torch.empty(x.numel() + y.numel(), dtype=dtype, device="cuda")
-        dst = torch.empty_like(src)
-        res["copy_ms"] = cuda_ms(lambda: dst.copy_(src), 20)
+        res.update(time_calls({"copy": (lambda a, b: b.copy_(a), 20)},
+                              (src, torch.empty_like(src))))
         # x, y and g read once, dx written; a compare and at most an add a window tap
         nbytes = (2 * x.numel() + 2 * y.numel()) * x.element_size()
         res["bound_ms"], res["bound_by"] = bound(nbytes, 2 * y.numel() * math.prod(k),
@@ -596,42 +660,6 @@ def check_pool_bwd(c: int, dtype, seed: int, timed: bool, ties: bool = False) ->
 # MaxPool3d_3a (T 2, 28^2), Mixed_4b-4f after MaxPool3d_4a (T 1, 28^2)
 STRIDE1_POOL_SP = {name: (2, 28, 28) if name.startswith("Mixed_3") else (1, 28, 28)
                    for name in i3d.INCEPTION_SPECS}
-
-
-COLD_BYTES = 150e6  # operand sets rotated through per timed call: 3x the H100's 50 MB L2
-
-
-def graph_ms(calls: list, rounds: int = 5) -> float:
-    """Device ms of one call of `calls` (closures, each over its own
-    operands, so that a call finds them out of L2): warmed up on a side
-    stream, captured in one CUDA graph, the graph replayed `rounds` times
-    between CUDA events.  The host's dispatch (a custom op's, autograd's)
-    then costs no device time, as in the captured train step."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for fn in calls:
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for fn in calls:
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(rounds):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (rounds * len(calls))
-
-
-def cold_copies(nbytes: float) -> int:
-    """Operand sets of `nbytes` that rotate through more than COLD_BYTES."""
-    return max(2, math.ceil(COLD_BYTES / nbytes))
 
 
 def stride1_window(sp) -> tuple:
@@ -858,27 +886,29 @@ def dw_plan_summary(batch: int, co: int) -> dict:
 def check_tapconv(batch: int, co: int, dtype, seed: int, timed: bool) -> dict:
     """K3, K4 and K5 against their plain versions at PrimaryCaps' shapes:
     x (batch, 28, 28, 832), w (9, 9, 832, co), g (batch, 20, 20, co).
-    Timed: kernel, plain, and cuDNN's time in NCHW and channels_last (the
-    faster is library_ms), and the bound from the useful work."""
+    Timed (time_calls): kernel, plain, and cuDNN's time in NCHW and
+    channels_last (the faster is library_ms), and the bound from the
+    useful work."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = (0.5 * torch.randn((batch, 28, 28, 832), generator=gen, device="cuda")).to(dtype)
     w = (0.01 * torch.randn((9, 9, 832, co), generator=gen, device="cuda")).to(dtype)
     g = torch.randn((batch, 20, 20, co), generator=gen, device="cuda").to(dtype)
-    fns = {
-        "tap_conv_fwd": (lambda: tapconv.tap_conv_fwd(x, w),
-                         lambda: tapconv.tap_conv_fwd_plain(x, w)),
-        "tap_conv_dx": (lambda: tapconv.tap_conv_dx(g, w, x.shape),
-                        lambda: tapconv.tap_conv_dx_plain(g, w, x.shape)),
-        "tap_conv_dw": (lambda: tapconv.tap_conv_dw(x, g, w.shape),
-                        lambda: tapconv.tap_conv_dw_plain(x, g, w.shape)),
+    fns = {  # each kernel and its plain version, over (x, w, g)
+        "tap_conv_fwd": (lambda x, w, g: tapconv.tap_conv_fwd(x, w),
+                         lambda x, w, g: tapconv.tap_conv_fwd_plain(x, w)),
+        "tap_conv_dx": (lambda x, w, g: tapconv.tap_conv_dx(g, w, x.shape),
+                        lambda x, w, g: tapconv.tap_conv_dx_plain(g, w, x.shape)),
+        "tap_conv_dw": (lambda x, w, g: tapconv.tap_conv_dw(x, g, w.shape),
+                        lambda x, w, g: tapconv.tap_conv_dw_plain(x, g, w.shape)),
     }
     res = {"batch": batch, "co": co, "dtype": str(dtype).replace("torch.", "")}
     if dtype == torch.bfloat16:
         res["dw_plan"] = dw_plan_summary(batch, co)
     for name, (kernel, plain) in fns.items():
-        out = kernel()
+        out = kernel(x, w, g)
         torch.cuda.synchronize()
-        res[name] = {"err": max_err(out, plain(), f"{name} {batch}x28x28x832 -> {co} {dtype}")}
+        res[name] = {"err": max_err(out, plain(x, w, g),
+                                    f"{name} {batch}x28x28x832 -> {co} {dtype}")}
     if timed:
         item = torch.finfo(dtype).bits // 8
         n_x, n_w, n_o = batch * 28 * 28 * 832, 81 * 832 * co, batch * 20 * 20 * co
@@ -890,12 +920,14 @@ def check_tapconv(batch: int, co: int, dtype, seed: int, timed: bool) -> dict:
                    "channels_last": tapconv.library_operands(x, w, g, channels_last=True)}
         for name, (kernel, plain) in fns.items():
             r = res[name]
-            r["kernel_ms"] = cuda_ms(kernel, 10)
-            r["plain_ms"] = cuda_ms(plain, 3)
-            r["library_ms_by_layout"] = {
-                k: cuda_ms(lambda ops=ops, f=TAP_LIBRARY[name]: f(*ops), 5)
-                for k, ops in layouts.items()}
+            r.update(time_calls({"kernel": (kernel, 10), "plain": (plain, 3)}, (x, w, g)))
+            by_layout = {k: time_calls({"library": (TAP_LIBRARY[name], 5)}, ops)
+                         for k, ops in layouts.items()}
+            r["library_ms_by_layout"] = {k: t["library_ms"] for k, t in by_layout.items()}
+            r["library_eager_ms_by_layout"] = {k: t["library_eager_ms"]
+                                               for k, t in by_layout.items()}
             r["library_ms"] = min(r["library_ms_by_layout"].values())
+            r["library_eager_ms"] = min(r["library_eager_ms_by_layout"].values())
             r["bound_ms"], r["bound_by"] = bound(nbytes[name], flops, dtype)
             r["useful_tflops"] = flops / r["kernel_ms"] / 1e9
             r["work_ratio"] = tapconv.work_ratio(
@@ -904,10 +936,12 @@ def check_tapconv(batch: int, co: int, dtype, seed: int, timed: bool) -> dict:
     return res
 
 
-def _f32_step(device: str, seed: int, batch: dict, move_seed: int | None = None):
-    """One f32 train step from the seeded weights -> (metrics, gradients,
-    BN buffers) on the host; with `move_seed`, every weight is first
-    scaled by (1 + NOISE_MOVE * N(0, 1)) drawn from that seed."""
+def _f32_step(device: str, seed: int, batch: dict, move_seed: int | None = None,
+              cfg: dict = TRAIN_CFG):
+    """One f32 train step of the loss configuration `cfg` from the seeded
+    weights -> (metrics, gradients, BN buffers) on the host; with
+    `move_seed`, every weight is first scaled by (1 + NOISE_MOVE * N(0, 1))
+    drawn from that seed."""
     state = create_train_state(seed=seed, device=device, compute_dtype=torch.float32,
                                bn_groups=2, dropout_rate=0.0)
     if move_seed is not None:
@@ -915,7 +949,7 @@ def _f32_step(device: str, seed: int, batch: dict, move_seed: int | None = None)
         with torch.no_grad():
             for p in state.model.parameters():
                 p.mul_(1.0 + NOISE_MOVE * torch.randn(p.shape, generator=gen).to(p.device))
-    step = make_train_step(LossConfig(**TRAIN_CFG), device=device)
+    step = make_train_step(LossConfig(**cfg), device=device)
     state, metrics = step(state, batch, TRAIN_EPOCH, TRAIN_RAMP)
     model = state.model
     return ({k: float(v) for k, v in metrics.items()},
@@ -987,18 +1021,21 @@ def within_band(got: tuple, ref: tuple, draws: list) -> tuple[list, dict]:
                                       "max_err": max(e for _, e, _ in noisy)}}
 
 
-def train_step_card_vs_cpu(seed: int = 1, size: int = 96, keep: dict | None = None) -> dict:
-    """Phase 7: one f32 train step at size^2, batch 2, with every BN on
-    K6 (one-pass threshold 0), TF32 off: the card against the CPU, within
-    the CPU's own noise band (see NOISE_MOVE).  `keep` receives the
-    card's step and the band's draws (phase 14 holds two ranks to them)."""
+def train_step_card_vs_cpu(seed: int = 1, size: int = 96, keep: dict | None = None,
+                           cfg: dict = TRAIN_CFG) -> dict:
+    """Phase 7: one f32 train step of the loss configuration `cfg` at
+    size^2, batch 2, with every BN on K6 (one-pass threshold 0), TF32 off:
+    the card against the CPU, within the CPU's own noise band for that
+    configuration (see NOISE_MOVE).  `keep` receives the card's step and
+    the band's draws (phase 14 holds two ranks to them)."""
     with f32_exact():
         batch = f32_batch(seed, size)
         reset_launches()
-        card = _f32_step("cuda", seed, batch)
+        card = _f32_step("cuda", seed, batch, cfg=cfg)
         launches = read_launches()
-        cpu = _f32_step("cpu", seed, batch)
-        draws = [_f32_step("cpu", seed, batch, move_seed=k) for k in range(1, N_DRAWS + 1)]
+        cpu = _f32_step("cpu", seed, batch, cfg=cfg)
+        draws = [_f32_step("cpu", seed, batch, move_seed=k, cfg=cfg)
+                 for k in range(1, N_DRAWS + 1)]
     n_bn = sum(isinstance(m, layers.TorchBatchNorm) for m in
                build_capsnet(device="cpu", compute_dtype=torch.float32).modules())
     want = {"composite_convt": 1, "composite_convt_bwd": 1, "bn_stats": n_bn,
@@ -1011,24 +1048,24 @@ def train_step_card_vs_cpu(seed: int = 1, size: int = 96, keep: dict | None = No
     return {"ok": not problems, "problems": problems[:20], "launches": launches, **summary}
 
 
-def state_snapshot(state) -> dict:
-    """Every tensor a train step changes, cloned: the parameters, the BN
-    running stats, Adam's moments and step counts, and the dropout
-    generator's state."""
-    model = state.model
-    snap = {f"param {n}": p.detach().clone() for n, p in model.named_parameters()}
-    snap.update({f"buffer {n}": b.detach().clone() for n, b in model.named_buffers()})
-    for n, p in model.named_parameters():
-        snap.update({f"adam {n} {k}": v.detach().clone()
-                     for k, v in state.optimizer.state[p].items()})
-    snap["generator"] = state.generator.get_state()
-    return snap
+@contextlib.contextmanager
+def packed_prep(on: bool):
+    """The packed uint8 prep (train/step.py's PICAD_PACKED_PREP switch, read
+    once at import) on or off inside the block."""
+    saved = train_step_module._PACKED_PREP
+    train_step_module._PACKED_PREP = on
+    try:
+        yield
+    finally:
+        train_step_module._PACKED_PREP = saved
 
 
-def snapshot_diff(a: dict, b: dict) -> list:
-    """The entries of two state_snapshots that are not bit for bit equal."""
-    return sorted(k for k in set(a) | set(b)
-                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+def with_grads(state) -> dict:
+    """A state_snapshot with each parameter's gradient, on the host."""
+    snap = state_snapshot(state)
+    snap.update({f"grad {n}": p.grad.detach().clone()
+                 for n, p in state.model.named_parameters() if p.grad is not None})
+    return {k: v.cpu() for k, v in snap.items()}
 
 
 def run_plan(state, plan, batch, steps: dict) -> list:
@@ -1044,20 +1081,26 @@ def run_plan(state, plan, batch, steps: dict) -> list:
     return out
 
 
-def graphed_against_eager(plan, batch, *, seed: int, dropout: float) -> dict:
-    """`plan` (run_plan's: "graphed" or "eager" steps) from a state of
-    `seed`, and every step of it eager from a second state of the same
-    seed: the losses and state_snapshots bit for bit or not, and what the
-    graphed step did (captures, replays)."""
-    cfg = LossConfig(**TRAIN_CFG)
+def graphed_against_eager(plan, batch, *, seed: int, dropout: float, cfg: dict = TRAIN_CFG,
+                          keep: dict | None = None, **model_kwargs) -> dict:
+    """`plan` (run_plan's: "graphed" or "eager" steps) of the loss
+    configuration `cfg` from a state of `seed` (`model_kwargs`: the
+    model's options, e.g. remat_encoder), and every step of it eager from
+    a second state of the same seed: the losses and state_snapshots bit
+    for bit or not, and what the graphed step did (captures, replays).
+    `keep` receives with_grads of the first run's end."""
+    loss_cfg = LossConfig(**cfg)
     runs = {}
     for mode in ("graphed", "eager"):
-        state = create_train_state(seed=seed, device="cuda", bn_groups=2, dropout_rate=dropout)
-        graphed = make_train_step(cfg)
+        state = create_train_state(seed=seed, device="cuda", bn_groups=2, dropout_rate=dropout,
+                                   **model_kwargs)
+        graphed = make_train_step(loss_cfg)
         steps = {"eager": graphed.eager_step,
                  "graphed": graphed if mode == "graphed" else graphed.eager_step}
         losses = run_plan(state, plan, batch, steps)
         torch.cuda.synchronize()
+        if mode == "graphed" and keep is not None:
+            keep.update(with_grads(state))
         runs[mode] = (losses, state_snapshot(state), steps["graphed"])
         del state, steps
     (lg, sg, graphed), (le, se, _) = runs["graphed"], runs["eager"]
@@ -1109,45 +1152,50 @@ def counts_plus(a, b):
     return a + b
 
 
-def want_counts(steps: int, n_big: int) -> dict:
-    """What `steps` train steps launch (a counter_state)."""
+def want_counts(steps: int, n_big: int, encoder_fwds: int = 1) -> dict:
+    """What `steps` train steps launch (a counter_state), with `n_big` K6
+    launches a step and the encoder's forward run `encoder_fwds` times a
+    step (2 with remat_encoder: its stride-1 pools' forward run again)."""
     return {"launches": {"composite_convt": steps, "composite_convt_bwd": steps,
                          "bn_stats": n_big * steps, "tap_conv_fwd": 2 * steps,
                          "tap_conv_dx": 2 * steps, "tap_conv_dw": 2 * steps},
             "by_conv": {fn.__name__: {conv: steps for conv in PCAPS_CO} for fn in TAP_COUNTERS},
             "pool_by_c": {c: steps for c in POOL_BWD_SHAPES},  # each strided pool once a step
             "pool": steps * len(POOL_BWD_SHAPES),
-            # each stride-1 stage once a step each way
-            "axis_by_c": {c: n * steps for c, n in STRIDE1_BY_C.items()},
-            "axis": steps * STRIDE1_LAUNCHES,
+            # each stride-1 stage once a step each way (the forward once an
+            # encoder forward)
+            "axis_by_c": {c: n * steps * encoder_fwds for c, n in STRIDE1_BY_C.items()},
+            "axis": steps * STRIDE1_LAUNCHES * encoder_fwds,
             "axis_bwd_by_c": {c: n * steps for c, n in STRIDE1_BY_C.items()},
             "axis_bwd": steps * STRIDE1_LAUNCHES}
 
 
-def pool_gib(pool) -> tuple[float, float]:
-    """The memory a CUDA graph pool holds: its segments' reserved GiB, and
-    the GiB of live blocks in them (the graphs' static outputs)."""
-    segs = [s for s in torch.cuda.memory_snapshot()
-            if tuple(s.get("segment_pool_id", ())) == tuple(pool)]
-    return (sum(s["total_size"] for s in segs) / 2**30,
-            sum(s["allocated_size"] for s in segs) / 2**30)
+def train_main_path(seed: int, cfg: dict = TRAIN_CFG, *, remat: bool = False,
+                    dtype=torch.bfloat16, packed: bool = False,
+                    ramps: tuple = (TRAIN_RAMP,) * TRAIN_STEPS,
+                    keep: dict | None = None) -> tuple[dict, object, object]:
+    """Phase 8 (and each configuration of phase 16): the loss configuration
+    `cfg` at full width on the card, the encoder rematerialised or not,
+    in `dtype`, through the packed prep or not, TRAIN_STEPS steps (step i
+    at ramp ramps[i]) through the graphed step and again through the eager
+    step from the same seeded state -> (results, a closure that replays one
+    more step, a closure that runs one more eager step).  `keep` receives
+    with_grads of the graphed run's end.
 
-
-def train_main_path(seed: int) -> tuple[dict, object, object]:
-    """Phase 8: the bench configuration at full width in bf16 on the card,
-    TRAIN_STEPS steps through the graphed step and again through the
-    eager step from the same seeded state -> (results, a closure that
-    replays one more step, a closure that runs one more eager step).
-
-    The eager steps' launches are the wrappers' counts.  The replays'
-    are not: a replay calls no wrapper.  Phase 9 (train_profile) counts
-    them in a replay's trace and fills in the graphed run's totals."""
+    The eager steps' launches are the wrappers' counts.  A replay calls
+    no wrapper: it adds what its capture counted (utils/profiling.
+    add_launches), and phase 9 (train_profile) counts phase 8's replays
+    in a replay's trace."""
     batch = synthetic_batch(np.random.default_rng(47 + seed), TRAIN_BS, (224, 224))
+    encoder_fwds = 2 if remat else 1  # the backward runs the encoder's forward again
     res, runs = {}, {}
     for mode in ("graphed", "eager"):
-        state = create_train_state(seed=seed, device="cuda", bn_groups=2, dropout_rate=0.5)
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2**30  # by earlier phases, before this run
+        state = create_train_state(seed=seed, device="cuda", bn_groups=2, dropout_rate=0.5,
+                                   compute_dtype=dtype, remat_encoder=remat)
         # folds: the model has bn_groups 2
-        step = make_train_step(LossConfig(**TRAIN_CFG))
+        step = make_train_step(LossConfig(**cfg))
         if mode == "eager":
             step = step.eager_step
         before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
@@ -1163,38 +1211,52 @@ def train_main_path(seed: int) -> tuple[dict, object, object]:
         # graphed: step 1 hooked (eager), the warm-ups (eager), the capture
         # and its replay, then replays; the wrappers count the eager calls
         n_eager = 1 + graph.WARMUP if mode == "graphed" else TRAIN_STEPS
-        for i in range(TRAIN_STEPS):
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch, TRAIN_EPOCH, TRAIN_RAMP)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            losses.append({k: float(v) for k, v in metrics.items()})
-            if i == 0:
-                for h in hooks:
-                    h.remove()
-            if i == n_eager - 1:
-                counted = counter_state()
-        n_big = sum(big_bn)
-        want = want_counts(n_eager, n_big)
+        with packed_prep(packed):
+            for i in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch, TRAIN_EPOCH, ramps[i])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append({k: float(v) for k, v in metrics.items()})
+                if i == 0:
+                    for h in hooks:
+                        h.remove()
+                if i == n_eager - 1:
+                    counted = counter_state()
+        counted_all = counter_state()
+        n_big = sum(big_bn)  # with remat the hooks see the recompute too
+        want = want_counts(n_eager, n_big, encoder_fwds)
+        want_all = want_counts(TRAIN_STEPS, n_big, encoder_fwds)
         moved = sum(not torch.equal(p.detach(), before[n])
                     for n, p in state.model.named_parameters())
+        n_params = len(before)
+        del before
         finite = all(np.isfinite(v) for m in losses for v in m.values())
         warm_s = float(np.median(times[n_eager:] if mode == "graphed" else times[1:]))
         r = res[mode] = {
             "counted": counted, "counted_steps": n_eager, "big_bn_per_step": n_big,
-            "params_moved": moved, "n_params": len(before), "losses": losses,
+            "counted_all_steps": counted_all,
+            "params_moved": moved, "n_params": n_params, "losses": losses,
             "step_s": times, "warm_step_ms": warm_s * 1e3, "clips_per_s": TRAIN_BS / warm_s,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "held_before_gib": held, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
             "reserved_gib": torch.cuda.memory_reserved() / 2**30}
         if mode == "graphed":
             r.update(captures=step.captures, replays=step.replays)
             r["pool_gib"], r["pool_allocated_gib"] = pool_gib(step.pool)
+            # what the replaying step holds: its state, the batch and the
+            # graph's pool, the eager warm-ups' cached blocks released
+            torch.cuda.empty_cache()
+            r["replaying_reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+            if keep is not None:
+                keep.update(with_grads(state))
         else:
             r.update(counted)
-        if not (counted == want and moved == len(before) and finite):
+        if not (counted == want and counted_all == want_all and moved == n_params and finite):
             raise AssertionError(f"train ({mode}): launches of the {n_eager} eager steps "
-                                 f"{counted} (want {want}), parameters moved "
-                                 f"{moved}/{len(before)}, losses finite {finite}: {losses}")
+                                 f"{counted} (want {want}), of all {TRAIN_STEPS} steps "
+                                 f"{counted_all} (want {want_all}), parameters moved "
+                                 f"{moved}/{n_params}, losses finite {finite}: {losses}")
         torch.cuda.synchronize()
         runs[mode] = (state, step, state_snapshot(state))
     (gstate, gstep, gsnap), (estate, estep, esnap) = runs["graphed"], runs["eager"]
@@ -1596,14 +1658,19 @@ def _sweep(cli, argv: list, ckpt_dir: str, split: str, n_classes: int) -> dict:
                           for p, r in results.items()}}
 
 
+def cli_wants(big_bn: int) -> tuple[dict, dict]:
+    """K1-K6's launches a train step and a validation batch of the train CLIs."""
+    return ({"composite_convt": 1, "composite_convt_bwd": 1, "bn_stats": big_bn,
+             "tap_conv_fwd": 2, "tap_conv_dx": 2, "tap_conv_dw": 2},
+            {"composite_convt": 1, "composite_convt_bwd": 0, "bn_stats": 0,
+             "tap_conv_fwd": 2, "tap_conv_dx": 0, "tap_conv_dw": 0})
+
+
 def trainer_phase(big_bn: int, tf32_defaults: tuple, keep_dir: str) -> dict:
     """Phase 13: the train and evaluate CLIs' path on the card (see the
     module docstring).  The first run's epoch-2 checkpoint is copied into
     `keep_dir` (phase 15 exports it)."""
-    step_want = {"composite_convt": 1, "composite_convt_bwd": 1, "bn_stats": big_bn,
-                 "tap_conv_fwd": 2, "tap_conv_dx": 2, "tap_conv_dw": 2}
-    batch_want = {"composite_convt": 1, "composite_convt_bwd": 0, "bn_stats": 0,
-                  "tap_conv_fwd": 2, "tap_conv_dx": 0, "tap_conv_dw": 0}
+    step_want, batch_want = cli_wants(big_bn)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
@@ -1658,6 +1725,81 @@ def trainer_phase(big_bn: int, tf32_defaults: tuple, keep_dir: str) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+def _tensor_rel_l2(a: torch.Tensor, ref: torch.Tensor) -> float:
+    if not ref.is_floating_point():
+        return math.inf  # the generator's state, a step count: equal or wrong
+    den = float(ref.double().square().sum())
+    num = float((a.double() - ref.double()).square().sum())
+    return (num / den) ** 0.5 if den else math.inf
+
+
+def remat_against_plain(plain: dict, remat: dict) -> dict:
+    """The rematerialised encoder's run against the stored one's, from
+    the same state through the same steps (with_grads of each): bit for
+    bit, or else the first tensor that differs (in the plain snapshot's
+    order) and the relative L2 of each that differs, all within
+    REMAT_L2."""
+    differ = set(snapshot_diff(plain, remat))
+    l2 = {k: _tensor_rel_l2(remat[k], plain[k]) if k in plain and k in remat else math.inf
+          for k in differ}
+    first = next((k for k in plain if k in differ), min(differ, default=None))
+    worst = max(l2.values(), default=0.0)
+    return {"bitwise": not differ, "n_tensors": len(plain), "n_differ": len(differ),
+            "first_differ": first, "first_rel_l2": l2.get(first), "max_rel_l2": worst,
+            "ok": worst <= REMAT_L2}
+
+
+def gv_cli_epoch(big_bn: int) -> dict:
+    """One epoch of train_ucf101.main with phase 13's flags, --gv in place
+    of --bv, as phase 13 runs the CLIs (_train_cli: launches counted a
+    step and a validation batch, the graphed step captured once)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_gv_")
+    argv = ["--gv" if a == "--bv" else a for a in TRAINER_ARGV]
+    try:
+        tr, rows = _train_cli(train_ucf101, argv + ["--epochs", "1", "--save_root", root,
+                                                    "--exp_id", "gv"], *cli_wants(big_bn))
+        loss = tr.cfg.loss
+        if not (loss.gv and not loss.bv and loss.lower_thresh is None
+                and loss.upper_thresh is None and loss.gv_wt == 0.5):
+            raise AssertionError(f"train_ucf101 {argv}: the loss configuration {loss}")
+        return {"argv": argv, "epochs": rows, "graph": tr.graph_counts}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def configs_phase(seed: int, big_bn: int, tf32_defaults: tuple) -> dict:
+    """Phase 16: each configuration of CONFIGS through train_main_path at
+    full width with torch's TF32 defaults, the ramp changing between
+    steps (CONFIG_RAMPS); K6 `big_bn` launches a step (phase 8's), twice
+    that with the encoder rematerialised; the remat run against the bv
+    run; then one --gv epoch of the train CLI (gv_cli_epoch)."""
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    res = {"tf32": {"matmul": tf32_defaults[0], "cudnn": tf32_defaults[1]},
+           "ramps": list(CONFIG_RAMPS)}
+    kept: dict = {"bv": {}, "remat": {}}
+    for name, (cfg, opts) in CONFIGS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        r = res[name] = train_main_path(seed, cfg, ramps=CONFIG_RAMPS, keep=kept.get(name),
+                                        **opts)[0]
+        r["seconds"] = time.perf_counter() - t0
+        want = big_bn * (2 if opts.get("remat") else 1)
+        if r["graphed"]["big_bn_per_step"] != want:
+            raise AssertionError(f"configs {name}: {r['graphed']['big_bn_per_step']} BN inputs a "
+                                 f"step take K6, want {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["remat_vs_plain"] = rp = remat_against_plain(kept["bv"], kept["remat"])
+    if not rp["ok"]:
+        raise AssertionError(f"configs: the remat step against the plain step {rp}")
+    del kept
+    t0 = time.perf_counter()
+    res["gv_cli"] = gv_cli_epoch(big_bn)
+    res["gv_cli"]["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -2320,13 +2462,13 @@ def main() -> int:
                    max_pool_bwd=pools, max_pool_axis=s1, stride1_pools=stride1)
 
     def timing(c):
-        return (f" kernel_ms {c['kernel_ms']:.4f} plain_ms {c['plain_ms']:.4f} library_ms "
-                f"{c['library_ms']:.4f}" + (f" copy_ms {c['copy_ms']:.4f}" if "copy_ms" in c
-                                            else "")
+        return ("".join(f" {k}_ms {c[k + '_ms']:.4f} ({c[k + '_eager_ms']:.4f})"
+                        for k in ("kernel", "plain", "library", "copy") if k + "_ms" in c)
                 + f" bound_us {1e3 * c['bound_ms']:.1f} ({c['bound_by']})"
                 if "kernel_ms" in c else "")
 
-    phase(3, "kernel", "tol 1e-4*max|plain| (+1 bf16 ulp): composite_convt " + "; ".join(
+    phase(3, "kernel", "tol 1e-4*max|plain| (+1 bf16 ulp); times in a CUDA graph over operands "
+          "out of L2 (back to back on warm operands in brackets): composite_convt " + "; ".join(
         f"{c['dtype']} {tuple(c['shape'])} err {c['max_abs_err']:.2e}" + timing(c)
         for c in checks) + " | K1 plan: {blocks} blocks of {rows} rows x every frame over "
         "{nwt} w-tile(s), {groups} channel group(s), work ratio {work_ratio:.3f} (train)".format(
@@ -2464,21 +2606,28 @@ def main() -> int:
         + "; top: " + ", ".join(f"{k['name'][:40]} {k['device_ms']:.2f}" for k in p["top"][:5])
         if p["device_ms"] else "device time not measured (the profiler saw no CUDA activity)"))
 
-    # 7 one f32 train step, card vs CPU
+    # 7 one f32 train step, card vs CPU: the bench's loss configuration (bv),
+    # and the gradient mask (gv)
     f32_card: dict = {}
-    ts = train_step_card_vs_cpu(seed=args.seed + 1, size=96, keep=f32_card)
-    results["train_slice_f32_card_vs_cpu"] = ts
-    if not ts["ok"]:
-        raise AssertionError(f"train step card vs CPU: {ts['problems']}")
-    nz = ts["noisy_grads"]
-    phase(7, "train-slice", f"f32 train step 96^2 batch 2 (folded views, bv, every BN on K6, TF32 "
-          f"off), card vs CPU: launches {ts['launches']}; losses card/cpu (CPU band) " + ", ".join(
-              f"{k} {v['card']:.6f}/{v['cpu']:.6f} ({v['band']:.1e})"
-              for k, v in ts["metrics"].items())
-          + f"; BN stats {ts['stats_max_rel']:.2e} (tol {STATS_TOL}); "
-          f"{len(ts['stable_grads'])} stable gradients, largest error "
-          f"{max(g['err'] for g in ts['stable_grads']):.2e}; {nz['n']} noisy gradients: "
-          f"relative L2 {nz['rel_l2']:.2e} vs band {nz['band_rel_l2']:.2e}")
+    for key, cfg in (("bv", TRAIN_CFG), ("gv", GV_CFG)):
+        t7 = time.perf_counter()
+        ts = train_step_card_vs_cpu(seed=args.seed + 1, size=96, cfg=cfg,
+                                    keep=f32_card if key == "bv" else None)
+        ts["seconds"] = time.perf_counter() - t7
+        results["train_slice_f32_card_vs_cpu" + ("" if key == "bv" else "_" + key)] = ts
+        if not ts["ok"]:
+            raise AssertionError(f"train step ({key}) card vs CPU: {ts['problems']}")
+        nz = ts["noisy_grads"]
+        phase(7, "train-slice", f"f32 train step 96^2 batch 2 (folded views, {key}, every BN on "
+              f"K6, TF32 off), card vs CPU: launches {ts['launches']}; losses card/cpu (CPU "
+              f"band of {N_DRAWS} draws) " + ", ".join(
+                  f"{k} {v['card']:.6f}/{v['cpu']:.6f} ({v['band']:.1e})"
+                  for k, v in ts["metrics"].items())
+              + f"; BN stats {ts['stats_max_rel']:.2e} (tol {STATS_TOL}); "
+              f"{len(ts['stable_grads'])} stable gradients, largest error "
+              f"{max(g['err'] for g in ts['stable_grads']):.2e}; {nz['n']} noisy gradients: "
+              f"relative L2 {nz['rel_l2']:.2e} vs band {nz['band_rel_l2']:.2e}; "
+              f"{ts['seconds']:.1f} s")
 
     # 8 the training main path at full width, bf16: graphed, against eager;
     # 9 where one warm train step spends its time: a replay, and an eager
@@ -2653,6 +2802,41 @@ def main() -> int:
           f"{art['export_cli_s']:.1f} s; parity_eval {art['parity']['line']!r} against itself: "
           f"rc {art['parity']['rc']} {art['parity']['verdict']} ({art['parity']['seconds']:.1f} s)"
           f"; phase {art['seconds']:.1f} s | {smi}")
+
+    # 16 the JAX package's other train configurations, graphed, at full width
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    results["configs"] = cf = configs_phase(args.seed, tr["big_bn_per_step"], tf32_defaults)
+    for name in CONFIGS:
+        g, e = cf[name]["graphed"], cf[name]["eager"]
+        per_step = counts_scaled(g["counted_all_steps"], div=TRAIN_STEPS)
+        phase(16, "configs", f"{name} ({'TF32 defaults ' + str(cf['tf32'])}): {TRAIN_STEPS} "
+              f"steps graphed ({g['captures']} capture, {g['replays']} replays) bit for bit "
+              f"{TRAIN_STEPS} eager ({cf[name]['graphed_vs_eager']['n_tensors']} tensors and the "
+              f"losses), ramps {cf['ramps']}; launches a step {per_step['launches']}, "
+              f"max_pool_bwd {per_step['pool']}, max_pool_axis {per_step['axis']}, "
+              f"max_pool_axis_bwd {per_step['axis_bwd']}; loss {g['losses'][0]['loss']:.4f} -> "
+              f"{g['losses'][-1]['loss']:.4f}, finite; parameters moved {g['params_moved']}/"
+              f"{g['n_params']}; warm replay {g['warm_step_ms']:.2f} ms = "
+              f"{g['clips_per_s']:.2f} clips/s (eager {e['warm_step_ms']:.2f} ms), each step "
+              f"synchronised; peak allocated {g['peak_mem_gib']:.3f} GiB ("
+              f"{g['held_before_gib']:.3f} of it held before the run), peak reserved "
+              f"{g['peak_reserved_gib']:.3f} (the eager warm-ups' cache with the graph's pool), "
+              f"reserved replaying {g['replaying_reserved_gib']:.3f}, the graph's pool "
+              f"{g['pool_gib']:.3f} ({g['pool_allocated_gib']:.3f} allocated); "
+              f"{cf[name]['seconds']:.1f} s | {smi}")
+    rp = cf["remat_vs_plain"]
+    phase(16, "configs", f"remat against bv, {TRAIN_STEPS} graphed steps from one state: bit for "
+          f"bit {rp['bitwise']} ({rp['n_tensors']} tensors with the gradients; first differing "
+          f"{rp['first_differ']}, relative L2 {rp['first_rel_l2']}, largest {rp['max_rel_l2']}, "
+          f"tol {REMAT_L2})")
+    gv = cf["gv_cli"]
+    phase(16, "configs", f"train_ucf101.main {' '.join(gv['argv'])} --epochs 1: " + "; ".join(
+        f"epoch {r['epoch']}: {r['steps']} steps in {r['seconds']:.2f} s = "
+        f"{r['clips_per_s']:.2f} clips/s, loss {r['loss']:.4f}, launches a step "
+        f"{r['launches_a_step']}, a val batch {r['launches_a_val_batch']}" for r in gv["epochs"])
+        + f"; the graphed step {gv['graph']}; {gv['seconds']:.1f} s | phase "
+        f"{time.perf_counter() - t16:.1f} s | {smi}")
 
     k1, k2, k6 = checks[2], bwd[0], stats[0]  # bf16 at the train shapes
     k35 = {conv: next(c for c in taps if "kernel_ms" in c["tap_conv_fwd"] and c["co"] == co)

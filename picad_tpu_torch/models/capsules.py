@@ -255,8 +255,11 @@ class CapsNet(nn.Module):
     def _encoder(self, x):
         if not (self.remat_encoder and self.training and torch.is_grad_enabled()):
             return self.conv1(x)
+        # The I3D encoder to Mixed_4f draws no random numbers (drop_enc runs
+        # after it), so the checkpoint need not save and restore the
+        # generators' state, a read that a CUDA graph capture forbids.
         return checkpoint(
-            self.conv1, x, use_reentrant=False,
+            self.conv1, x, use_reentrant=False, preserve_rng_state=False,
             context_fn=lambda: (contextlib.nullcontext(), frozen_running_stats(self.conv1)))
 
     def forward(self, img: torch.Tensor, classification=None, concat_labels=None,

@@ -51,11 +51,12 @@ def temporal_gradient(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
                        x.narrow(dim, n - 1, 1)], dim=dim)
     lower = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 2),
                        x.narrow(dim, n - 2, 1)], dim=dim)
-    shape = [1] * x.ndim
-    shape[dim] = n
-    denom = torch.full((n,), 2.0, dtype=x.dtype, device=x.device)
-    denom[0] = denom[-1] = 1.0
-    return (upper - lower) / denom.reshape(shape)
+    d = upper - lower
+    # the central differences over 2, the edges over 1, each in place on the
+    # device: no number written from the host (a CUDA graph capture forbids
+    # that copy)
+    return torch.cat([d.narrow(dim, 0, 1), d.narrow(dim, 1, n - 2) / 2.0,
+                      d.narrow(dim, n - 1, 1)], dim=dim)
 
 
 def pixelwise_gradient(pred: torch.Tensor, *, conf_thresh_lower: float | None = None,

@@ -12,18 +12,19 @@ a 0-d tensor on the card, and replays the graph.
 
 - The key (`graph_key`) is everything that changes which operations a
   step launches: the batch's keys, shapes, dtypes and device, the
-  pseudo-label branch epoch < thresh_epoch, the model's bn_groups and
-  dropout rates, the backend switches that pick kernels (TF32,
-  deterministic algorithms, cuDNN's modes, the BN one-pass threshold),
-  the identity of the state's model, optimizer and generator, and the
-  addresses of the model's parameters and buffers, which the graph's
-  kernels read and write.  A call with another key takes its own graph,
-  or the eager step while the key warms up.
+  pseudo-label branch epoch < thresh_epoch, the model's bn_groups,
+  dropout rates and encoder checkpoint (`remat_encoder`: the backward
+  runs the encoder's forward again), the process-wide switches that pick
+  kernels (TF32, deterministic algorithms, cuDNN's modes, the BN
+  one-pass threshold, the packed uint8 prep), the identity of the
+  state's model, optimizer and generator, and the addresses of the
+  model's parameters and buffers, which the graph's kernels read and
+  write.  A call with another key takes its own graph, or the eager step
+  while the key warms up.
 - The step stays eager where a replay would skip something: a hook on
-  the model, a parameter or any module (a replay fires none), a process
-  group (gloo collectives cannot be captured; NCCL capture is not built),
-  and the encoder's activation checkpoint (it reads the default
-  generator's state, which a capture forbids).
+  the model, a parameter or any module (a replay fires none), and a
+  process group (gloo collectives cannot be captured; NCCL capture is
+  not built).
 - Values that change without changing the graph reach every replay
   through tensors on the card: the ramp (written before each replay)
   and the learning rate (train/optimizer.py's fused Adam reads its 0-d
@@ -79,13 +80,17 @@ def step_tensors(batch: dict) -> dict:
 
 def backend_flags() -> tuple:
     """The process-wide switches that pick which kernels the step runs."""
+    from picad_tpu_torch.train import step  # it imports this module
+
     cudnn = torch.backends.cudnn
     return (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32, cudnn.enabled,
             cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
-            layers.BN_ONEPASS_MIN)
+            layers.BN_ONEPASS_MIN, step._PACKED_PREP)
 
 
 class _Parts(NamedTuple):
+    # the model's submodules, not the model: an entry of _PARTS that held
+    # its key would keep every model it has seen, and its tensors, alive
     modules: list
     tensors: list  # parameters and buffers
 
@@ -94,10 +99,10 @@ _PARTS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def _parts(model) -> _Parts:
-    """The model's modules, parameters and buffers, listed once a model."""
+    """The model's submodules, parameters and buffers, listed once a model."""
     parts = _PARTS.get(model)
     if parts is None:
-        parts = _PARTS[model] = _Parts(list(model.modules()),
+        parts = _PARTS[model] = _Parts(list(model.modules())[1:],
                                        list(model.parameters()) + list(model.buffers()))
     return parts
 
@@ -111,24 +116,25 @@ def has_hooks(model) -> bool:
         return True
     parts = _parts(model)
     return (any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
-                or m._backward_pre_hooks for m in parts.modules)
+                or m._backward_pre_hooks for m in (model, *parts.modules))
             or any(t._backward_hooks or getattr(t, "_post_accumulate_grad_hooks", None)
                    for t in parts.tensors))
 
 
 def graph_key(state, batch: dict, epoch, thresh_epoch) -> tuple | None:
     """What decides which operations a step of `state` on `batch` at
-    `epoch` launches, or None where the step must stay eager (a hook, a
-    process group, the encoder's activation checkpoint)."""
+    `epoch` launches, or None where the step must stay eager (a hook or
+    a process group)."""
     model = state.model
-    if mesh.is_active() or getattr(model, "remat_encoder", False) or has_hooks(model):
+    if mesh.is_active() or has_hooks(model):
         return None
     batch_sig = tuple((k, tuple(t.shape), t.dtype, t.device)
                       for k, t in step_tensors(batch).items())
     return (id(model), id(state.optimizer), id(state.generator), batch_sig,
             float(epoch) < float(thresh_epoch), model.bn_groups,
             model.dropout_rate, model.drop_enc.rate, model.drop_dec.rate,
-            backend_flags(), tuple(t.data_ptr() for t in _parts(model).tensors))
+            model.remat_encoder, backend_flags(),
+            tuple(t.data_ptr() for t in _parts(model).tensors))
 
 
 class _Captured(NamedTuple):

@@ -4,15 +4,17 @@ Counterpart of picad_tpu/utils/profiling.py: a trace context manager
 (torch.profiler, written as a Chrome trace) and a StepTimer reporting
 clips/s and clips/s per card.  Beside them, the measuring helpers the
 bench (picad_tpu_torch/bench) and chip_smoke.py share: CUDA-event
-timing, a profiled call's device time by kernel, the kernels' launch
-counts, a sample's percentile with the samples beyond it, and
-nvidia-smi's card line.
+timing back to back and in a CUDA graph over operands out of L2
+(`cuda_ms`, `graph_ms`), a profiled call's device time by kernel, the
+kernels' launch counts, a sample's percentile with the samples beyond
+it, and nvidia-smi's card line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import math
 import os
 import re
 import subprocess
@@ -97,6 +99,42 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+COLD_BYTES = 150e6  # operand sets rotated through per timed call: 3x the H100's 50 MB L2
+
+
+def graph_ms(calls: list, rounds: int = 5) -> float:
+    """Device ms of one call of `calls` (closures, each over its own
+    operands, so that a call finds them out of L2): warmed up on a side
+    stream, captured in one CUDA graph, the graph replayed `rounds` times
+    between CUDA events.  The host's dispatch (a custom op's, autograd's)
+    then costs no device time, as in the captured train step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (rounds * len(calls))
+
+
+def cold_copies(nbytes: float) -> int:
+    """Operand sets of `nbytes` that rotate through more than COLD_BYTES."""
+    return max(2, math.ceil(COLD_BYTES / nbytes))
 
 
 def host_launch_us(device: torch.device, n: int = 2000) -> float:

@@ -70,7 +70,13 @@ from picad_tpu_torch.ops.fused_head import fused_decoder_head
 from picad_tpu_torch.train.graph import graph_key
 from picad_tpu_torch.train.state import create_train_state
 from picad_tpu_torch.train.step import make_train_step
-from picad_tpu_torch.utils.profiling import StepTimer, percentile, trace_context
+from picad_tpu_torch.utils.profiling import (
+    COLD_BYTES,
+    StepTimer,
+    cold_copies,
+    percentile,
+    trace_context,
+)
 from tests.test_torch_model import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -666,3 +672,14 @@ def test_trace_context_writes_a_chrome_trace(tmp_path):
         torch.ones(8).add_(1)
     (path,) = tmp_path.glob("trace_*.json")
     assert json.loads(path.read_text())["traceEvents"]
+
+
+@pytest.mark.parametrize("nbytes, want", [(1e6, 150), (50e6, 3), (75e6, 2), (150e6, 2),
+                                          (1e9, 2)])
+def test_cold_copies_rotate_past_the_l2(nbytes, want):
+    """graph_ms's operand sets: enough that one round reads more than
+    COLD_BYTES (3x the H100's 50 MB L2), so a call finds its operands out
+    of L2, and never fewer than 2."""
+    n = cold_copies(nbytes)
+    assert n == want
+    assert n * nbytes >= COLD_BYTES and (n == 2 or (n - 1) * nbytes < COLD_BYTES)

@@ -1089,10 +1089,10 @@ def _graph_batch(seed=0):
     return synthetic_batch(np.random.default_rng(seed), GRAPH_BS, (GRAPH_HW, GRAPH_HW))
 
 
-def _graphed_against_eager(plan, dropout=0.5):
+def _graphed_against_eager(plan, dropout=0.5, **kwargs):
     from chip_smoke import graphed_against_eager
 
-    return graphed_against_eager(plan, _graph_batch(), seed=3, dropout=dropout)
+    return graphed_against_eager(plan, _graph_batch(), seed=3, dropout=dropout, **kwargs)
 
 
 @pytest.mark.parametrize("dropout", [0.0, 0.5])
@@ -1198,6 +1198,53 @@ def test_a_replay_counts_what_an_eager_step_launches(card):
     assert sum(in_replay["max_pool_bwd"].values()) == 3, in_replay
     assert sum(in_replay["max_pool_axis"].values()) == 16, in_replay
     assert sum(in_replay["max_pool_axis_bwd"].values()) == 16, in_replay
+
+
+def _config(name):
+    """(loss configuration, model options) of chip_smoke.py's CONFIGS."""
+    from chip_smoke import CONFIGS
+
+    cfg, opts = CONFIGS[name]
+    return cfg, {"remat_encoder": True} if opts.get("remat") else {}
+
+
+def _ramp_plan():
+    from chip_smoke import CONFIG_RAMPS
+
+    return [("graphed", 12.0, r, None) for r in CONFIG_RAMPS]
+
+
+@pytest.mark.parametrize("name", ["gv", "bv+gv", "remat"])
+def test_other_configurations_replay_eager_steps_bit_for_bit(card, name):
+    """The gradient mask alone and beside bv, and the rematerialised
+    encoder: steps through the graphed step (the warm-ups, one capture,
+    replays; the ramp changing between them, which gv reads nowhere)
+    against as many eager steps from the same seeded state, bit for
+    bit."""
+    from picad_tpu_torch.train import graph
+
+    cfg, kwargs = _config(name)
+    plan = _ramp_plan()
+    res = _graphed_against_eager(plan, cfg=cfg, **kwargs)
+    assert res["bitwise"], res
+    assert (res["captures"], res["replays"]) == (1, len(plan) - graph.WARMUP), res
+
+
+def test_remat_step_equals_the_plain_step(card):
+    """The graphed step with the encoder rematerialised against the one
+    that stores its activations, from one state through the same steps:
+    losses, parameters, BN buffers, Adam's moments, the generator and the
+    gradients bit for bit (the recompute runs the same kernels on the
+    same inputs)."""
+    from picad_tpu_torch.bench.check import snapshot_diff
+
+    runs = {}
+    for name in ("bv", "remat"):
+        cfg, kwargs = _config(name)
+        runs[name] = {}
+        res = _graphed_against_eager(_ramp_plan(), cfg=cfg, keep=runs[name], **kwargs)
+        runs[name]["losses"] = torch.tensor(res["losses"])
+    assert snapshot_diff(runs["bv"], runs["remat"]) == []
 
 
 def test_the_optimizer_is_fused_on_the_card_and_plain_in_a_process_group(card):

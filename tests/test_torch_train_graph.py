@@ -5,10 +5,11 @@ tested in tests/test_torch_cuda.py and chip_smoke.py phase 8.  Here:
 
 - `graph_key`: what changes it (the batch's shapes, dtypes, keys and
   device, the thresh_epoch branch, the dropout rates, bn_groups, the
-  backend switches, the identity and addresses of the state's parts),
-  what makes the step stay eager (a hook, a process group, the encoder's
-  activation checkpoint), and what leaves it alone (wt_ramp, lr, epoch on
-  the same side of thresh_epoch, a new batch of the same layout);
+  encoder's activation checkpoint, the backend switches and the packed
+  prep, the identity and addresses of the state's parts), what makes the
+  step stay eager (a hook, a process group), and what leaves it alone
+  (wt_ramp, lr, epoch on the same side of thresh_epoch, a new batch of
+  the same layout);
 - `GraphedStep`'s dispatch, with the capture and the replay stubbed:
   WARMUP eager calls a key, then one capture and replays, at most
   MAX_GRAPHS graphs, the eager step for a key of None;
@@ -24,6 +25,8 @@ tested in tests/test_torch_cuda.py and chip_smoke.py phase 8.  Here:
 """
 
 import copy
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +43,7 @@ from picad_tpu_torch.ops import convops, tapconv
 from picad_tpu_torch.ops.fused_head_kernel import composite_convt
 from picad_tpu_torch.parallel import mesh
 from picad_tpu_torch.train import graph
+from picad_tpu_torch.train import step as port_step
 from picad_tpu_torch.train.optimizer import FusedAdam, make_optimizer
 from picad_tpu_torch.train.state import TrainState, create_train_state
 from picad_tpu_torch.train.step import compute_losses, make_train_step
@@ -91,10 +95,12 @@ def _key(state, batch=None, epoch=12.0):
 
 
 def _restore_flags():
-    saved = (torch.backends.cuda.matmul.allow_tf32, layers.BN_ONEPASS_MIN)
+    saved = (torch.backends.cuda.matmul.allow_tf32, layers.BN_ONEPASS_MIN,
+             port_step._PACKED_PREP)
 
     def restore():
-        torch.backends.cuda.matmul.allow_tf32, layers.BN_ONEPASS_MIN = saved
+        (torch.backends.cuda.matmul.allow_tf32, layers.BN_ONEPASS_MIN,
+         port_step._PACKED_PREP) = saved
     return restore
 
 
@@ -154,6 +160,10 @@ def _bn_threshold(state):
     layers.BN_ONEPASS_MIN = 0
 
 
+def _packed_prep(state):
+    port_step._PACKED_PREP = not port_step._PACKED_PREP
+
+
 # each: (a change of the batch returning the batch, or of the epoch returning
 # a float, or of the state returning None)
 KEY_CHANGES = {
@@ -167,11 +177,13 @@ KEY_CHANGES = {
     "drop_enc.rate": _set(lambda s: (s.model.drop_enc, "rate"), 0.0),
     "drop_dec.rate": _set(lambda s: (s.model.drop_dec, "rate"), 0.0),
     "bn_groups": _set(lambda s: (s.model, "bn_groups"), 1),
+    "remat_encoder": _set(lambda s: (s.model, "remat_encoder"), True),
     "parameter address": _moved_parameter,
     "optimizer": _new_optimizer,
     "generator": _new_generator,
     "TF32": _tf32_flag,
     "BN one-pass threshold": _bn_threshold,
+    "packed prep": _packed_prep,
 }
 
 
@@ -235,14 +247,35 @@ def test_graph_key_is_none_under_a_hook(cause):
     assert _key(state) == before
 
 
-def test_graph_key_is_none_in_a_process_group_or_with_remat(monkeypatch):
+@pytest.mark.parametrize("case", ["process group", "remat"])
+def test_graph_key_is_none_in_a_process_group_or_with_remat(monkeypatch, case):
+    """A process group keeps the step eager; the encoder's activation
+    checkpoint no longer does (it reads no generator state): it takes a
+    key of its own."""
     state = _tiny_state()
+    plain = _key(state)
+    assert plain is not None
+    if case == "process group":
+        monkeypatch.setattr(mesh, "is_active", lambda: True)
+        assert _key(state) is None
+    else:
+        state.model.remat_encoder = True
+        remat = _key(state)
+        assert remat is not None and remat != plain
+
+
+@pytest.mark.parametrize("model", ["tiny", "capsnet"])
+def test_graph_key_keeps_no_model_alive(model):
+    """The key's per-model cache of modules and tensors holds no
+    reference to the model: a state that goes out of use frees its model
+    and its parameters, whose addresses the key read."""
+    state = (_tiny_state() if model == "tiny"
+             else create_train_state(seed=0, device="cpu", bn_groups=2))
     assert _key(state) is not None
-    state.model.remat_encoder = True
-    assert _key(state) is None
-    state.model.remat_encoder = False
-    monkeypatch.setattr(mesh, "is_active", lambda: True)
-    assert _key(state) is None
+    refs = [weakref.ref(state.model), weakref.ref(next(state.model.parameters()))]
+    del state
+    gc.collect()
+    assert [r() for r in refs] == [None, None]
 
 
 def test_graph_key_holds_across_what_a_replay_reads_from_tensors():
